@@ -1,0 +1,150 @@
+// K1: fused batched Levenberg-Marquardt / Gauss-Newton PnP solve.
+//
+// Replaces epropnp_tpu/ops/pnp/pallas_lm.py::lm_solve_pallas (body
+// _make_kernel, with _evaluate, _chol_solve and _pose_add). Computes, for
+// every object, a fixed number of steps: projection, Huber cost + IRLS
+// rescale, analytic Jacobian, the 21 JtJ and 6 gradient sums, a damped
+// Cholesky solve, the tangent pose update and, outside fast mode, the
+// Ceres-style trust-region accept/reject. Scope: 6DoF, no projection
+// bounds, no JtJ output (what the serving and bench paths run); the Pallas
+// kernel's dof 4, bounds and with_jtj options are not ported yet.
+//
+// What bounds it on an H100: per object the work is a reduction over N
+// points followed by a few hundred dependent scalar flops (Cholesky,
+// pose update, trust region). It is latency- and issue-bound small-matrix
+// work; no tensor-core shape fits it. Bytes per evaluation are 28 N
+// (x3d, x2d, w2d), re-read from L1/L2 every iteration: 28 * 512 * 1024
+// = 14.7 MB at the bench shape, well inside the 50 MB L2.
+//
+// Design: one warp per object, points strided across the 32 lanes, and
+// xor-butterfly warp shuffles for the cost, JtJ and gradient sums. Every
+// lane ends up with bit-identical sums, so each lane runs the unrolled
+// Cholesky, the pose update and the accept/reject itself, with no shared
+// memory round trip and no divergence. The ragged edge (N not a multiple
+// of 32, B not a multiple of the warps per block) is masked, not padded.
+
+#include <cuda_runtime.h>
+
+#include "pnp_common.cuh"
+
+namespace epropnp {
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+template <int K>
+__device__ __forceinline__ void warp_allreduce(float* v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+  }
+}
+
+template <bool FAST>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
+                const float* __restrict__ w2d, const float* __restrict__ cam,
+                const float* __restrict__ delta,
+                const float* __restrict__ pose0, float* __restrict__ pose_out,
+                float* __restrict__ cost_out, int B, int N, LMParams prm) {
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;  // the whole warp leaves together
+
+  const ObjParams o = load_obj(cam, delta, b);
+  const float* px3 = x3d + (size_t)b * N * 3;
+  const float* px2 = x2d + (size_t)b * N * 2;
+  const float* pw2 = w2d + (size_t)b * N * 2;
+
+  auto ev = [&](const float* pose, float& cost, float* jtj, float* g) {
+    float r[9], t[3];
+    pose_rt(pose, r, t);
+    float acc[1 + kTri + kDof];
+#pragma unroll
+    for (int i = 0; i < 1 + kTri + kDof; ++i) acc[i] = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      accumulate_point<!FAST>(
+          r, t, o, prm.z_min, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
+          __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
+          __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1), acc[0], acc + 1,
+          acc + 1 + kTri);
+    }
+    warp_allreduce<1 + kTri + kDof>(acc);
+    cost = acc[0];
+#pragma unroll
+    for (int i = 0; i < kTri; ++i) jtj[i] = acc[1 + i];
+#pragma unroll
+    for (int i = 0; i < kDof; ++i) g[i] = acc[1 + kTri + i];
+  };
+
+  float pose[kPoseDim];
+#pragma unroll
+  for (int i = 0; i < kPoseDim; ++i) pose[i] = pose0[b * kPoseDim + i];
+  float cost, jtj[kTri], g[kDof];
+
+  if (FAST) {
+    // pure Gauss-Newton; the cost is that at the pose before the last
+    // update (the reference's loop carry)
+    cost = 0.f;
+    for (int it = 0; it < prm.num_iter; ++it) {
+      ev(pose, cost, jtj, g);
+      float step[kDof], pose_new[kPoseDim];
+#pragma unroll
+      for (int a = 0; a < kDof; ++a) jtj[a * (a + 1) / 2 + a] += prm.eps;
+      chol_solve(jtj, g, step);
+      pose_add(pose, step, pose_new);
+#pragma unroll
+      for (int i = 0; i < kPoseDim; ++i) pose[i] = pose_new[i];
+    }
+  } else {
+    ev(pose, cost, jtj, g);
+    float radius = prm.initial_trust_region_radius, decrease = 2.f;
+    for (int it = 0; it < prm.num_iter; ++it)
+      lm_trust_region_step(prm, pose, cost, jtj, g, radius, decrease, ev);
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kPoseDim; ++i) pose_out[b * kPoseDim + i] = pose[i];
+    cost_out[b] = cost;
+  }
+}
+
+template <bool FAST>
+void launch(const float* x3d, const float* x2d, const float* w2d,
+            const float* cam, const float* delta, const float* pose0,
+            float* pose_out, float* cost_out, int B, int N,
+            const LMParams& prm, cudaStream_t stream) {
+  const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  lm_solve_kernel<FAST><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      x3d, x2d, w2d, cam, delta, pose0, pose_out, cost_out, B, N, prm);
+}
+
+}  // namespace
+}  // namespace epropnp
+
+// Plain C entry point (loaded with ctypes). Returns the cudaError_t of the
+// launch; 0 means the kernel was queued on ``stream``.
+extern "C" int epropnp_lm_solve(
+    const float* x3d, const float* x2d, const float* w2d, const float* cam,
+    const float* delta, const float* pose0, float* pose_out, float* cost_out,
+    int B, int N, int fast_mode, int num_iter, float z_min, float eps,
+    float min_lm_diagonal, float max_lm_diagonal,
+    float min_relative_decrease, float initial_trust_region_radius,
+    float max_trust_region_radius, void* stream) {
+  if (B <= 0) return 0;
+  epropnp::LMParams prm{num_iter, z_min, eps, min_lm_diagonal,
+                        max_lm_diagonal, min_relative_decrease,
+                        initial_trust_region_radius,
+                        max_trust_region_radius};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (fast_mode)
+    epropnp::launch<true>(x3d, x2d, w2d, cam, delta, pose0, pose_out,
+                          cost_out, B, N, prm, s);
+  else
+    epropnp::launch<false>(x3d, x2d, w2d, cam, delta, pose0, pose_out,
+                           cost_out, B, N, prm, s);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,254 @@
+// Shared device code of the PnP kernels (6DoF poses [tx, ty, tz, qw, qi,
+// qj, qk], no projection bounds): per-point projection, Huber cost with the
+// IRLS sqrt-derivative rescale, the analytic pose Jacobian, the unrolled
+// damped Cholesky solve and the tangent-space pose update.
+//
+// The arithmetic follows epropnp_tpu/ops/pnp/pallas_lm.py (_evaluate,
+// _chol_solve, _pose_add) term by term, so the plain PyTorch twins in
+// epropnp_tpu_torch/ops/pnp/lm_kernel.py compute the same function:
+//   * the z clamp divides by zc but keeps zc_raw in the numerator;
+//   * epsilons 1e-24 (squared residual) and 1e-10 (Huber derivative);
+//   * the quaternion is renormalised inside the evaluation;
+//   * with CLIP (trust-region mode) Jacobian rows are zeroed where the z
+//     clamp is active.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace epropnp {
+
+constexpr int kDof = 6;       // tangent-space dimension
+constexpr int kPoseDim = 7;   // [t, q]
+constexpr int kTri = kDof * (kDof + 1) / 2;  // JtJ lower triangle
+
+// Per-object camera and Huber delta.
+struct ObjParams {
+  float fx, fy, cx, cy, delta;
+};
+
+// Scalar parameters of the trust-region LM (LMSolver fields).
+struct LMParams {
+  int num_iter;
+  float z_min, eps, min_lm_diagonal, max_lm_diagonal, min_relative_decrease,
+      initial_trust_region_radius, max_trust_region_radius;
+};
+
+__device__ __forceinline__ ObjParams load_obj(const float* cam,
+                                              const float* delta, int b) {
+  ObjParams o;
+  o.fx = cam[b * 4 + 0];
+  o.fy = cam[b * 4 + 1];
+  o.cx = cam[b * 4 + 2];
+  o.cy = cam[b * 4 + 3];
+  o.delta = delta[b];
+  return o;
+}
+
+// Rotation matrix (row major) and translation of a pose.
+__device__ __forceinline__ void pose_rt(const float* pose, float* r,
+                                        float* t) {
+  t[0] = pose[0];
+  t[1] = pose[1];
+  t[2] = pose[2];
+  const float qn = rsqrtf(pose[3] * pose[3] + pose[4] * pose[4] +
+                          pose[5] * pose[5] + pose[6] * pose[6] + 1e-24f);
+  const float w = pose[3] * qn, i = pose[4] * qn, j = pose[5] * qn,
+              k = pose[6] * qn;
+  r[0] = 1.f - 2.f * (j * j + k * k);
+  r[1] = 2.f * (i * j - k * w);
+  r[2] = 2.f * (i * k + j * w);
+  r[3] = 2.f * (i * j + k * w);
+  r[4] = 1.f - 2.f * (i * i + k * k);
+  r[5] = 2.f * (j * k - i * w);
+  r[6] = 2.f * (i * k - j * w);
+  r[7] = 2.f * (j * k + i * w);
+  r[8] = 1.f - 2.f * (i * i + j * j);
+}
+
+// Projection of one point: the rotated point, the raw and clamped depth,
+// and u, v.
+struct Proj {
+  float xr, yr, zr, zc_raw, zc, u, v;
+};
+
+__device__ __forceinline__ Proj project(const float* r, const float* t,
+                                        const ObjParams& o, float z_min,
+                                        float x, float y, float z) {
+  Proj p;
+  p.xr = r[0] * x + r[1] * y + r[2] * z;
+  p.yr = r[3] * x + r[4] * y + r[5] * z;
+  p.zr = r[6] * x + r[7] * y + r[8] * z;
+  const float xc = p.xr + t[0], yc = p.yr + t[1];
+  p.zc_raw = p.zr + t[2];
+  p.zc = fmaxf(p.zc_raw, z_min);
+  p.u = (o.fx * xc + o.cx * p.zc_raw) / p.zc;
+  p.v = (o.fy * yc + o.cy * p.zc_raw) / p.zc;
+  return p;
+}
+
+__device__ __forceinline__ float huber_cost(float ss, float s_sqrt,
+                                            float delta) {
+  return s_sqrt <= delta ? 0.5f * ss : delta * s_sqrt - 0.5f * delta * delta;
+}
+
+// Huber cost of one point (scoring: no Jacobian).
+__device__ __forceinline__ float point_cost(const float* r, const float* t,
+                                            const ObjParams& o, float z_min,
+                                            float x, float y, float z,
+                                            float ut, float vt, float wu,
+                                            float wv) {
+  const Proj p = project(r, t, o, z_min, x, y, z);
+  const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
+  const float ss = ru * ru + rv * rv;
+  return huber_cost(ss, sqrtf(fmaxf(ss, 1e-24f)), o.delta);
+}
+
+// Adds one point's cost, JtJ lower triangle (row-major) and gradient.
+template <bool CLIP>
+__device__ __forceinline__ void accumulate_point(
+    const float* r, const float* t, const ObjParams& o, float z_min, float x,
+    float y, float z, float ut, float vt, float wu, float wv, float& cost,
+    float* jtj, float* g) {
+  const Proj p = project(r, t, o, z_min, x, y, z);
+  const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
+  const float ss = ru * ru + rv * rv;
+  const float s_sqrt = sqrtf(fmaxf(ss, 1e-24f));
+  cost += huber_cost(ss, s_sqrt, o.delta);
+  const float rho = sqrtf(fminf(o.delta / fmaxf(s_sqrt, 1e-10f), 1.f));
+
+  const float live = (!CLIP || p.zc_raw >= z_min) ? 1.f : 0.f;
+  const float du0 = o.fx / p.zc * live;
+  const float du2 = (o.cx - p.u) / p.zc * live;
+  const float dv1 = o.fy / p.zc * live;
+  const float dv2 = (o.cy - p.v) / p.zc * live;
+  const float swu = wu * rho, swv = wv * rho;
+
+  const float w0 = 2.f * p.xr, w1 = 2.f * p.yr, w2 = 2.f * p.zr;
+  float ju[kDof], jv[kDof];
+  ju[0] = du0 * swu;
+  ju[1] = 0.f;
+  ju[2] = du2 * swu;
+  ju[3] = (-du2 * w1) * swu;
+  ju[4] = (-du0 * w2 + du2 * w0) * swu;
+  ju[5] = (du0 * w1) * swu;
+  jv[0] = 0.f;
+  jv[1] = dv1 * swv;
+  jv[2] = dv2 * swv;
+  jv[3] = (dv1 * w2 - dv2 * w1) * swv;
+  jv[4] = (dv2 * w0) * swv;
+  jv[5] = (-dv1 * w0) * swv;
+  const float ru_s = ru * rho, rv_s = rv * rho;
+  int idx = 0;
+#pragma unroll
+  for (int a = 0; a < kDof; ++a) {
+#pragma unroll
+    for (int b = 0; b <= a; ++b) jtj[idx++] += ju[a] * ju[b] + jv[a] * jv[b];
+    g[a] += ju[a] * ru_s + jv[a] * rv_s;
+  }
+}
+
+// Solve (damped) x = -g for SPD ``a`` given as its lower triangle.
+__device__ __forceinline__ void chol_solve(const float* a, const float* g,
+                                           float* x) {
+  float l[kTri];
+#pragma unroll
+  for (int i = 0; i < kDof; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = a[i * (i + 1) / 2 + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k)
+        s -= l[i * (i + 1) / 2 + k] * l[j * (j + 1) / 2 + k];
+      l[i * (i + 1) / 2 + j] = (i == j) ? sqrtf(s) : s / l[j * (j + 1) / 2 + j];
+    }
+  }
+  float y[kDof];
+#pragma unroll
+  for (int i = 0; i < kDof; ++i) {
+    float s = -g[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= l[i * (i + 1) / 2 + k] * y[k];
+    y[i] = s / l[i * (i + 1) / 2 + i];
+  }
+#pragma unroll
+  for (int i = kDof - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < kDof; ++k) s -= l[k * (k + 1) / 2 + i] * x[k];
+    x[i] = s / l[i * (i + 1) / 2 + i];
+  }
+}
+
+__device__ __forceinline__ void pose_add(const float* pose, const float* step,
+                                         float* out) {
+  out[0] = pose[0] + step[0];
+  out[1] = pose[1] + step[1];
+  out[2] = pose[2] + step[2];
+  const float w = pose[3], i = pose[4], j = pose[5], k = pose[6];
+  const float d0 = step[3], d1 = step[4], d2 = step[5];
+  const float qw = w + (i * d0 + j * d1 + k * d2);
+  const float qi = i + (-w * d0 - k * d1 + j * d2);
+  const float qj = j + (k * d0 - w * d1 - i * d2);
+  const float qk = k + (-j * d0 + i * d1 - w * d2);
+  const float n = fmaxf(sqrtf(qw * qw + qi * qi + qj * qj + qk * qk), 1e-12f);
+  out[3] = qw / n;
+  out[4] = qi / n;
+  out[5] = qj / n;
+  out[6] = qk / n;
+}
+
+// One trust-region LM update (pallas_lm.py lm_body). ``ev`` evaluates a
+// pose into (cost, jtj, g). State is updated in place; the accept/reject
+// order is that of the reference.
+template <typename Eval>
+__device__ __forceinline__ void lm_trust_region_step(
+    const LMParams& prm, float* pose, float& cost, float* jtj, float* g,
+    float& radius, float& decrease, Eval ev) {
+  float damped[kTri];
+#pragma unroll
+  for (int i = 0; i < kTri; ++i) damped[i] = jtj[i];
+#pragma unroll
+  for (int a = 0; a < kDof; ++a) {
+    const float d = jtj[a * (a + 1) / 2 + a];
+    damped[a * (a + 1) / 2 + a] =
+        d + fminf(fmaxf(d, prm.min_lm_diagonal), prm.max_lm_diagonal) /
+                radius + prm.eps;
+  }
+  float step[kDof];
+  chol_solve(damped, g, step);
+  float pose_new[kPoseDim];
+  pose_add(pose, step, pose_new);
+  float cost_new, jtj_new[kTri], g_new[kDof];
+  ev(pose_new, cost_new, jtj_new, g_new);
+
+  float mcc = 0.f;
+#pragma unroll
+  for (int a = 0; a < kDof; ++a) {
+    float hs = 0.f;
+#pragma unroll
+    for (int b = 0; b < kDof; ++b) {
+      const int key = a >= b ? a * (a + 1) / 2 + b : b * (b + 1) / 2 + a;
+      hs += jtj[key] * step[b];
+    }
+    mcc -= step[a] * (hs * 0.5f + g[a]);
+  }
+  const float rel = (cost - cost_new) / mcc;
+  const bool ok = rel >= prm.min_relative_decrease && mcc > 0.f;
+  if (ok) {
+#pragma unroll
+    for (int i = 0; i < kPoseDim; ++i) pose[i] = pose_new[i];
+    cost = cost_new;
+#pragma unroll
+    for (int i = 0; i < kTri; ++i) jtj[i] = jtj_new[i];
+#pragma unroll
+    for (int i = 0; i < kDof; ++i) g[i] = g_new[i];
+  }
+  const float c = 2.f * rel - 1.f;
+  const float r_ok = radius / fmaxf(1.f - c * c * c, 1.f / 3.f);
+  radius = fminf(fmaxf(ok ? r_ok : radius, prm.eps),
+                 prm.max_trust_region_radius);
+  radius = ok ? radius : radius / decrease;
+  decrease = ok ? 2.f : decrease * 2.f;
+}
+
+}  // namespace epropnp

@@ -1,0 +1,309 @@
+// K2: fused random-sample LM (RANSAC-like) PnP initialisation.
+//
+// Replaces epropnp_tpu/ops/pnp/pallas_rslm.py::rslm_init_pallas on its
+// packed path _rslm_init_packed (body _make_packed_kernel). Per object:
+//   1. the centre-based translation init (means and unbiased variances of
+//      the normalised image points and of the 3D points);
+//   2. an inclusive cdf of mean(w2d, -1), and num_proposals subsets of
+//      num_points indices drawn WITH replacement by inverse cdf: the first
+//      index whose inclusive cdf reaches u * total (u in (0, 1], so a
+//      zero-weight point is never drawn), clamped to N - 1;
+//   3. a random unit quaternion (Box-Muller from uniforms, tiny-norm guard)
+//      per proposal;
+//   4. num_iter trust-region LM steps on every proposal's subset;
+//   5. each proposal's Huber cost on the strided scoring subsample
+//      (points 0, s, 2s, ... with s = N / score_n), and the argmin. On an
+//      exact tie the FIRST proposal wins (the TPU kernel averages the tied
+//      poses); a NaN cost never wins unless every cost is NaN.
+//
+// Random bits: Philox4x32-10 from curand, one subsequence per proposal,
+// seeded per object from the caller's (B,) int32 seed tensor. Draw order
+// per proposal: num_points index uniforms, then 8 uniforms (4 Box-Muller
+// pairs) for the quaternion. The PyTorch twin (rslm_kernel.py) replays the
+// same stream.
+//
+// Scope: 6DoF, no projection bounds (what the bench path runs); the Pallas
+// kernel's dof 4 and bounds options are not ported yet.
+//
+// What bounds it on an H100: issue latency of small dependent scalar work.
+// Per proposal: a 16-point LM with an unrolled 6x6 Cholesky per step, then
+// a score_n-point cost loop; per object only 28 N bytes are read. Design:
+// one block per object, one thread per proposal; the centre init and the
+// cdf are block reductions/scans in shared memory; each thread runs its
+// proposal's LM in registers over its samples held in shared memory.
+
+#include <cuda_runtime.h>
+#include <curand_kernel.h>
+#include <math.h>
+
+#include "pnp_common.cuh"
+
+namespace epropnp {
+namespace {
+
+template <int K>
+__device__ __forceinline__ void warp_allreduce(float* v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+  }
+}
+
+// Sum of K values over the block (blockDim.x a multiple of 32); every
+// thread receives the same sums. ``scratch`` holds 32 * K floats.
+template <int K>
+__device__ __forceinline__ void block_allreduce(float* v, float* scratch) {
+  warp_allreduce<K>(v);
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) scratch[warp * K + i] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = 0.f;
+    for (int w = 0; w < nwarps; ++w) s += scratch[w * K + i];
+    v[i] = s;
+  }
+  __syncthreads();
+}
+
+__global__ void rslm_init_kernel(
+    const int* __restrict__ seeds, const float* __restrict__ x3d,
+    const float* __restrict__ x2d, const float* __restrict__ w2d,
+    const float* __restrict__ cam, const float* __restrict__ delta,
+    float* __restrict__ pose_out,
+    float* __restrict__ cost_out, int N, int P, int K, int score_stride,
+    int score_n, LMParams prm) {
+  extern __shared__ float smem[];
+  const int T = blockDim.x;
+  float* cdf = smem;            // N
+  float* chunk_tot = cdf + N;   // T
+  float* samp = chunk_tot + T;  // P * K * 7: x, y, z, u, v, wu, wv
+  __shared__ float scratch[32 * 5];
+  __shared__ float win_key[32];
+  __shared__ int win_idx[32];
+
+  const int b = blockIdx.x;
+  const int p = threadIdx.x;
+  const ObjParams o = load_obj(cam, delta, b);
+  const float* px3 = x3d + (size_t)b * N * 3;
+  const float* px2 = x2d + (size_t)b * N * 2;
+  const float* pw2 = w2d + (size_t)b * N * 2;
+
+  // ---- 1. centre-based translation init (two-pass mean / variance) ----
+  const float inv_n = 1.f / (float)N, bessel = 1.f / (float)(N - 1);
+  float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n = p; n < N; n += T) {
+    s[0] += (__ldg(px2 + 2 * n) - o.cx) / o.fx;
+    s[1] += (__ldg(px2 + 2 * n + 1) - o.cy) / o.fy;
+    s[2] += __ldg(px3 + 3 * n);
+    s[3] += __ldg(px3 + 3 * n + 1);
+    s[4] += __ldg(px3 + 3 * n + 2);
+  }
+  block_allreduce<5>(s, scratch);
+  float mu[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) mu[i] = s[i] * inv_n;
+  float q[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n = p; n < N; n += T) {
+    float d[5];
+    d[0] = (__ldg(px2 + 2 * n) - o.cx) / o.fx - mu[0];
+    d[1] = (__ldg(px2 + 2 * n + 1) - o.cy) / o.fy - mu[1];
+    d[2] = __ldg(px3 + 3 * n) - mu[2];
+    d[3] = __ldg(px3 + 3 * n + 1) - mu[3];
+    d[4] = __ldg(px3 + 3 * n + 2) - mu[4];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) q[i] += d[i] * d[i];
+  }
+  block_allreduce<5>(q, scratch);
+  float var[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) var[i] = q[i] * bessel;
+  const float norm3 = sqrtf(var[2] + var[3] + var[4]);
+  const float normc = sqrtf(fmaxf(var[0] + var[1], 1e-12f));
+  const float scale =
+      0.816496580927726f * norm3 / fmaxf(normc, 1e-6f);  // sqrt(2/3)
+  const float t0[3] = {mu[0] * scale, mu[1] * scale, scale};
+
+  // ---- 2. inclusive cdf of mean(w2d, -1): chunk scans + chunk offsets ----
+  const int chunk = (N + T - 1) / T;
+  const int c0 = min(N, p * chunk), c1 = min(N, c0 + chunk);
+  float run = 0.f;
+  for (int n = c0; n < c1; ++n) {
+    run += (__ldg(pw2 + 2 * n) + __ldg(pw2 + 2 * n + 1)) * 0.5f;
+    cdf[n] = run;
+  }
+  chunk_tot[p] = run;
+  __syncthreads();
+  if (p == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < T; ++i) {
+      const float v = chunk_tot[i];
+      chunk_tot[i] = acc;
+      acc += v;
+    }
+  }
+  __syncthreads();
+  const float off = chunk_tot[p];
+  for (int n = c0; n < c1; ++n) cdf[n] += off;
+  __syncthreads();
+  const float total = cdf[N - 1];
+
+  float pose[kPoseDim];
+  float cost = INFINITY;
+  if (p < P) {
+    // ---- 3. sampling and the proposal's initial pose ----
+    curandStatePhilox4_32_10_t st;
+    curand_init((unsigned long long)(unsigned int)seeds[b],
+                (unsigned long long)p, 0ull, &st);
+    float* my = samp + (size_t)p * K * 7;
+    for (int i = 0; i < K; ++i) {
+      const float u = curand_uniform(&st) * total;
+      // first index whose inclusive cdf reaches u (searchsorted, left)
+      int lo = 0, hi = N;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (cdf[mid] < u) lo = mid + 1;
+        else hi = mid;
+      }
+      const int idx = min(lo, N - 1);
+      my[i * 7 + 0] = __ldg(px3 + 3 * idx);
+      my[i * 7 + 1] = __ldg(px3 + 3 * idx + 1);
+      my[i * 7 + 2] = __ldg(px3 + 3 * idx + 2);
+      my[i * 7 + 3] = __ldg(px2 + 2 * idx);
+      my[i * 7 + 4] = __ldg(px2 + 2 * idx + 1);
+      my[i * 7 + 5] = __ldg(pw2 + 2 * idx);
+      my[i * 7 + 6] = __ldg(pw2 + 2 * idx + 1);
+    }
+    pose[0] = t0[0];
+    pose[1] = t0[1];
+    pose[2] = t0[2];
+    float nrm[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float u1 = fmaxf(curand_uniform(&st), 1e-12f);
+      const float u2 = curand_uniform(&st);
+      nrm[c] = sqrtf(-2.f * logf(u1)) * cosf(2.f * (float)M_PI * u2);
+    }
+    const float qn = sqrtf(nrm[0] * nrm[0] + nrm[1] * nrm[1] +
+                           nrm[2] * nrm[2] + nrm[3] * nrm[3]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      pose[3 + c] = qn < prm.eps ? (c == 0 ? 1.f : 0.f)
+                                 : nrm[c] / fmaxf(qn, 1e-30f);
+
+    // ---- 4. trust-region LM on the proposal's subset ----
+    auto ev = [&](const float* ps, float& c, float* jtj, float* g) {
+      float r[9], t[3];
+      pose_rt(ps, r, t);
+      c = 0.f;
+#pragma unroll
+      for (int i = 0; i < kTri; ++i) jtj[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDof; ++i) g[i] = 0.f;
+      for (int i = 0; i < K; ++i) {
+        const float* q7 = my + i * 7;
+        accumulate_point<true>(r, t, o, prm.z_min, q7[0], q7[1], q7[2],
+                               q7[3], q7[4], q7[5], q7[6], c, jtj, g);
+      }
+    };
+    float jtj[kTri], g[kDof];
+    ev(pose, cost, jtj, g);
+    float radius = prm.initial_trust_region_radius, decrease = 2.f;
+    for (int it = 0; it < prm.num_iter; ++it)
+      lm_trust_region_step(prm, pose, cost, jtj, g, radius, decrease, ev);
+
+    // ---- 5. score on the strided subsample ----
+    float r[9], t[3];
+    pose_rt(pose, r, t);
+    cost = 0.f;
+    for (int j = 0; j < score_n; ++j) {
+      const int n = j * score_stride;
+      cost += point_cost(
+          r, t, o, prm.z_min, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
+          __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
+          __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1));
+    }
+  }
+
+  // ---- argmin over proposals: (key, index) lexicographic ----
+  float key = (p < P && !isnan(cost)) ? cost : INFINITY;
+  int idx = p;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const float k2 = __shfl_xor_sync(0xffffffffu, key, w);
+    const int i2 = __shfl_xor_sync(0xffffffffu, idx, w);
+    if (k2 < key || (k2 == key && i2 < idx)) {
+      key = k2;
+      idx = i2;
+    }
+  }
+  if ((p & 31) == 0) {
+    win_key[p >> 5] = key;
+    win_idx[p >> 5] = idx;
+  }
+  __syncthreads();
+  if (p == 0) {
+    for (int w = 1; w < (T >> 5); ++w) {
+      if (win_key[w] < win_key[0] ||
+          (win_key[w] == win_key[0] && win_idx[w] < win_idx[0])) {
+        win_key[0] = win_key[w];
+        win_idx[0] = win_idx[w];
+      }
+    }
+  }
+  __syncthreads();
+  if (p == win_idx[0]) {
+#pragma unroll
+    for (int i = 0; i < kPoseDim; ++i) pose_out[b * kPoseDim + i] = pose[i];
+    cost_out[b] = cost;
+  }
+}
+
+int launch(const int* seeds, const float* x3d, const float* x2d,
+           const float* w2d, const float* cam, const float* delta,
+           float* pose_out, float* cost_out, int B, int N, int P, int K,
+           int score_stride, int score_n, const LMParams& prm,
+           cudaStream_t stream) {
+  const int threads = (P + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * ((size_t)N + threads + (size_t)P * K * 7);
+  cudaError_t err = cudaFuncSetAttribute(
+      rslm_init_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rslm_init_kernel<<<B, threads, smem, stream>>>(
+      seeds, x3d, x2d, w2d, cam, delta, pose_out, cost_out, N, P, K,
+      score_stride, score_n, prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace epropnp
+
+// Plain C entry point (loaded with ctypes). Returns the cudaError_t of the
+// launch; 0 means the kernel was queued on ``stream``.
+extern "C" int epropnp_rslm_init(
+    const int* seeds, const float* x3d, const float* x2d, const float* w2d,
+    const float* cam, const float* delta, float* pose_out, float* cost_out,
+    int B, int N, int num_points, int num_proposals, int num_iter,
+    int score_stride, int score_n, float z_min, float eps,
+    float min_lm_diagonal, float max_lm_diagonal,
+    float min_relative_decrease, float initial_trust_region_radius,
+    float max_trust_region_radius, void* stream) {
+  if (B <= 0) return 0;
+  if (N < 2 || num_points < 1 || num_proposals < 1 || num_proposals > 1024 ||
+      score_n < 1 || (long long)(score_n - 1) * score_stride >= N)
+    return (int)cudaErrorInvalidValue;
+  epropnp::LMParams prm{num_iter, z_min, eps, min_lm_diagonal,
+                        max_lm_diagonal, min_relative_decrease,
+                        initial_trust_region_radius,
+                        max_trust_region_radius};
+  return epropnp::launch(seeds, x3d, x2d, w2d, cam, delta, pose_out,
+                         cost_out, B, N, num_proposals, num_points,
+                         score_stride, score_n, prm,
+                         static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, which is loaded with ``ctypes``. The
+build runs at first use, from the package's own sources only, into
+``build/`` beside the package; the file name carries a hash of the sources
+and flags, so an edited source is rebuilt and a stale library never loads.
+A missing compiler or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (see the ``extern "C"`` functions).
+_SIGNATURES = {
+    'epropnp_lm_solve': [_P] * 8 + [_I] * 4 + [_F] * 7 + [_P],
+    'epropnp_rslm_init': [_P] * 8 + [_I] * 7 + [_F] * 7 + [_P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    candidate = os.path.join(cuda_home, 'bin', 'nvcc')
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu*'))):
+        h.update(os.path.basename(path).encode())
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f'libepropnp_kernels_{h.hexdigest()[:16]}.so')
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` unless the library is already built.
+
+    Returns the library path. The compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills per kernel) is kept beside it as
+    ``<library>.log``.
+    """
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')))
+    tmp = f'{out}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    with open(out + '.log', 'w') as f:
+        f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with typed entries."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with cudaError_t {err}')

@@ -1,0 +1,116 @@
+"""ResNet backbone family (PyTorch), counterpart of
+``epropnp_tpu/models/backbones/resnet.py``.
+
+Submodules carry torchvision's names (``conv1``, ``bn1``,
+``layer{s}.{i}.conv{j}``, ``layer{s}.{i}.downsample.{0,1}``), so a
+torchvision-style state dict loads as it is. The public layout is the JAX
+package's: NHWC in, a tuple of NHWC stage features out; the convolutions
+run in NCHW inside. Bottleneck blocks are plain (no deformable conv).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+# depth -> (block, stage_sizes, stage_channels(last = feat dim))
+resnet_spec = {
+    18: ('basic', (2, 2, 2, 2), (64, 128, 256, 512)),
+    34: ('basic', (3, 4, 6, 3), (64, 128, 256, 512)),
+    50: ('bottleneck', (3, 4, 6, 3), (64, 128, 256, 512)),
+    101: ('bottleneck', (3, 4, 23, 3), (64, 128, 256, 512)),
+    152: ('bottleneck', (3, 8, 36, 3), (64, 128, 256, 512)),
+}
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    # eps 1e-5 and flax momentum 0.9 (= torch momentum 0.1)
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Conv2d(inplanes, planes, 1, stride, bias=False), _bn(planes))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = _bn(planes)
+        self.downsample = (_downsample(inplanes, planes, stride)
+                           if stride != 1 or inplanes != planes else None)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = _bn(planes * 4)
+        self.downsample = (_downsample(inplanes, planes * 4, stride)
+                           if stride != 1 or inplanes != planes * 4 else None)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)
+
+
+class ResNetBackbone(nn.Module):
+    """ResNet without the classification head.
+
+    Args:
+        depth: 18/34/50/101/152.
+        out_indices: which stage outputs (1-based: stage 1 is stride 4,
+            stage 4 is stride 32) to return.
+    """
+
+    def __init__(self, depth: int = 34, out_indices: Sequence[int] = (4,)):
+        super().__init__()
+        block_name, stage_sizes, stage_channels = resnet_spec[depth]
+        block = BasicBlock if block_name == 'basic' else Bottleneck
+        self.out_indices = tuple(out_indices)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        inplanes = 64
+        for stage, (n_blocks, channels) in enumerate(
+                zip(stage_sizes, stage_channels), start=1):
+            blocks = []
+            for i in range(n_blocks):
+                stride = 2 if stage > 1 and i == 0 else 1
+                blocks.append(block(inplanes, channels, stride))
+                inplanes = channels * block.expansion
+            self.add_module(f'layer{stage}', nn.Sequential(*blocks))
+        self.feat_channels = tuple(c * block.expansion for c in stage_channels)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """x: (bs, H, W, 3) NHWC -> tuple of (bs, h, w, C) features."""
+        x = x.permute(0, 3, 1, 2)
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        outs = []
+        for stage in range(1, 5):
+            x = getattr(self, f'layer{stage}')(x)
+            if stage in self.out_indices:
+                outs.append(x.permute(0, 2, 3, 1))
+        return tuple(outs)
