@@ -3,8 +3,10 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card (an H100: the kernels are built for ``sm_90a``).
 
-It builds the two hand-written PnP kernels from ``epropnp_tpu_torch/csrc``
-with ``nvcc`` and runs four phases; any failure exits non-zero:
+It builds the hand-written kernels from ``epropnp_tpu_torch/csrc`` with
+``nvcc`` (K1 fused LM solve, K2 fused RSLM init, K3 DCNv2 sampling
+contraction; one compiler per source, all started together) and runs
+seven phases; any failure exits non-zero:
 
 a. K1 (fused LM solve) against its torch twin on the card, at the shapes
    of the main path: (2048, 16) and (32, 4096) in fast Gauss-Newton mode,
@@ -20,8 +22,19 @@ c. Serving: a full-width CDPN-34 on seeded random weights answers 3
 d. The bench problem (``bench.make_problem``: 6DoF, B=1024, N=512, RSLM
    init with 64 proposals, then 10 trust-region LM iterations) through
    ``LMSolver``, kernel path against twin path.
+e. K3 against its twin (and an f64 twin) at the Det serving shapes
+   (672x1600 x 6 images): a backbone stage-3 layer at stride 1 and its
+   stride-2 first block, a stage-4 layer, FCOS level 0.
+f. K1 at dof 4 with projection bounds in fast mode (the Det solve) against
+   its twin (and an f64 twin) at (98304, 16) x 3 and (1536, 128) x 5.
+g. Det serving: EPro-PnP-Det v1b (ResNet-101-DCN, FPN, FCOSEmbHead,
+   DeformPnPHead, the 4DoF solve) on seeded random weights answers 3
+   requests of 6 camera frames (1600x900, sky-cropped to 1600x672) through
+   ``det.api.inference_detector``; each request must launch K3 36 times and
+   K1 twice. A 320x800 image runs through the card and through the twins
+   on the CPU with the same random draws.
 
-Every launch counter is set to 0 before phases c and d (the main path)
+Every launch counter is set to 0 before phases c, d and g (the main path)
 and read after them. Earlier lines print each phase's numbers, the card's
 ``nvidia-smi`` name and power limit, and one JSON object with a row per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -54,6 +67,24 @@ K1_RTOL, K1_MIN_FRAC = 1e-4, 0.99
 # cost == scoring-subsample cost of the returned pose, rtol 1e-3: the
 # kernel's pose is renormalised, evaluate_pnp's projection is not).
 K2_MEDIAN_RATIO, K2_CONSIST_RTOL = 2.0, 1e-3
+# K3: max|kernel - twin| <= 1e-4 * max|twin| (f32 sums of 2304-4608 terms
+# in another order; the f64 twin's distance to both is printed beside it).
+K3_REL = 1e-4
+# Peak rates of one H100 SXM (NVIDIA data sheet): f32 outside the tensor
+# cores, and HBM3.
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# f32 operations of one point evaluation in K1/K2 (projection, Huber cost
+# and IRLS rescale, Jacobian, JtJ + gradient sums; an FMA counts 2),
+# counted from accumulate_point in csrc/pnp_common.cuh; the scoring cost
+# of one point (point_cost) is about 40.
+K1_POINT_FLOPS = {6: 200, 4: 130}
+K2_SCORE_FLOPS = 40
+# Det phase: residual-branch scale of the random backbone (see
+# build_det_model) and the card-against-CPU rule of the dense outputs,
+# max|card - cpu| <= 1e-4 * max|cpu| per output (f32 on both sides).
+RESIDUAL_SCALE, DET_DENSE_REL = 0.3, 1e-4
+# nuScenes CAM_FRONT-like intrinsics of a 1600x900 frame
+NUSCENES_K = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]]
 LINEMOD_K = [[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
              [0.0, 0.0, 1.0]]
 
@@ -94,6 +125,23 @@ def time_ms(torch, fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(flops, nbytes):
+    """The least time for the work on one H100 (ms) and what bounds it:
+    operations at the f32 peak or bytes (each input read once, each output
+    written once) at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
+def k1_bound(b, n, dof, evals):
+    """K1's bound: ``evals`` point evaluations per object, the points,
+    camera, delta and pose read once, pose and cost written once."""
+    pose = 4 if dof == 4 else 7
+    return bound_ms(K1_POINT_FLOPS[dof] * b * n * evals,
+                    b * (28 * n + 4 * (4 + 1 + 2 * pose + 1)))
+
+
 def profile_once(torch, fn, label, top=6):
     """Profile one call of ``fn`` with ``torch.profiler``: print the wall
     time, the summed device time of its kernels and the top kernels.
@@ -121,12 +169,13 @@ def profile_once(torch, fn, label, top=6):
         busy_us = sum(dev(e) for e in kernels)
     except Exception as err:  # noqa: BLE001 - reading the trace only
         print(f'profile {label}: unreadable ({type(err).__name__}: {err})')
-        return
+        return []
     print(f'profile {label}: wall {wall * 1e3:.3f} ms, device busy '
           f'{busy_us / 1e3:.3f} ms ({len(kernels)} kernel names)')
     for e in kernels[:top]:
         print(f'profile {label}:   {dev(e) / 1e3:9.3f} ms  x{e.count:<5d} '
               f'{e.key[:90]}')
+    return [(e.key, dev(e) / 1e3, e.count) for e in kernels]
 
 
 def agree(a, b, rtol, floor):
@@ -165,16 +214,19 @@ def phase_a(torch, device):
         plain_ms = time_ms(torch, run_t, iters=5)
         row = dict(B=b, N=n, fast_mode=fast, num_iter=iters, what=what,
                    cost_agree=float(frac_c), pose_agree=float(frac_p),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=k1_bound(b, n, 6, iters + (not fast))[0])
         print('phase a: K1 ' + json.dumps(row))
         assert frac_c >= K1_MIN_FRAC and frac_p >= K1_MIN_FRAC, \
             f'K1 disagrees with its twin at {(b, n, fast)}'
         rows.append(row)
     main = rows[-1]
+    bound, by = k1_bound(main['B'], main['N'], 6, main['num_iter'] + 1)
     return dict(name='lm_solve (K1)', route='cuda',
                 source='epropnp_tpu_torch/csrc/lm_kernel.cu',
-                replaces='epropnp_tpu/ops/pnp/pallas_lm.py:308',
-                max_abs_err=max_err, ms=main['ms'], plain_ms=main['plain_ms'])
+                replaces='epropnp_tpu/ops/pnp/pallas_lm.py:396',
+                max_abs_err=max_err, ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def phase_b(torch, device):
@@ -219,10 +271,16 @@ def phase_b(torch, device):
     assert replay >= K1_MIN_FRAC, 'K2 disagrees with its twin per object'
     assert med_k <= K2_MEDIAN_RATIO * med_t, 'K2 init worse than 2x twin'
     assert consist == 1.0, 'K2 cost is not the cost of its pose'
+    props, pts, iters = kw['num_proposals'], kw['num_points'], kw['num_iter']
+    flops = b * props * (K1_POINT_FLOPS[6] * pts * (iters + 1)
+                         + K2_SCORE_FLOPS * kw['score_points'])
+    bound, by = bound_ms(flops, b * (28 * n + 4 * (4 + 1 + 1 + 7 + 1)))
+    print(f'phase b: K2 bound {bound:.4f} ms ({by})')
     return dict(name='rslm_init (K2)', route='cuda',
                 source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
-                replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:713',
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:817',
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
 
 
 def calibrate_batchnorm(torch, model, inp):
@@ -420,6 +478,374 @@ def phase_d(torch, device):
     assert np.isfinite(ct).all()
 
 
+def dcn_problem(torch, device, n, h, w, c, cout, stride, seed):
+    """A DeformConv layer's inputs at one path shape: x (n, h, w, c), the
+    raw conv_offset output of seeded non-zero offset weights (offsets of a
+    few pixels, some samples off the map) and a weight (cout, c, 3, 3)."""
+    from epropnp_tpu_torch.ops.deform_conv import DeformConv, conv_nhwc
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=gen, device=device)
+    mod = DeformConv(c, cout, stride, bias=False).to(device)
+    with torch.no_grad():
+        mod.conv_offset.weight.normal_(0, 1.5 / (9 * c) ** 0.5, generator=gen)
+        mod.weight.normal_(0, (2 / (9 * c)) ** 0.5, generator=gen)
+        om = conv_nhwc(mod.conv_offset, x).contiguous()
+    return x, om, mod.weight.detach()
+
+
+def phase_e(torch, device):
+    """K3 against its twin at the Det serving shapes (672x1600 x 6)."""
+    from epropnp_tpu_torch.ops import dcn_kernel as k3
+    shapes = [  # (n, h, w, c, cout, stride, what)
+        (6, 42, 100, 256, 256, 1, 'backbone stage 3 (x22 per request)'),
+        (6, 84, 200, 256, 256, 2, 'backbone stage 3 first block'),
+        (6, 21, 50, 512, 512, 1, 'backbone stage 4 (x2 per request)'),
+        (6, 84, 200, 256, 256, 1, 'FCOS towers, level 0 (x2 per request)'),
+    ]
+    rows = []
+    for i, (n, h, w, c, cout, stride, what) in enumerate(shapes):
+        x, om, weight = dcn_problem(torch, device, n, h, w, c, cout, stride,
+                                    40 + i)
+        w3 = k3.kernel_weight(weight)
+        with torch.no_grad():
+            run_k = lambda: k3.dcn_forward_cuda(x, om, w3, None, stride)  # noqa: E731,E501
+            run_t = lambda: k3.dcn_reference(x, om, weight, None, stride)  # noqa: E731,E501
+            out_k, out_t = run_k(), run_t()
+            out_64 = k3.dcn_reference(x.double(), om.double(),
+                                      weight.double(), None, stride)
+            torch.cuda.synchronize()
+            ho, wo = out_k.shape[1:3]
+            # samples off the map: share of (position, tap) with a corner
+            # outside (the offsets are the raw conv_offset output)
+            rows_, w4 = k3.corner_rows_and_weights(om, h, w, stride, 2.0)
+            off_map = float(((w4 == 0).any(-1)).float().mean())
+            err = float((out_k - out_t).abs().max())
+            scale = float(out_t.abs().max())
+            err64_k = float((out_k.double() - out_64).abs().max())
+            err64_t = float((out_t.double() - out_64).abs().max())
+            ms = time_ms(torch, run_k, warmup=2, iters=10)
+            plain_ms = time_ms(torch, run_t, warmup=1, iters=3)
+            # yardstick of the contraction part only: one product of the
+            # pre-sampled (L, 9c) stack (not a port of the kernel)
+            sampled = sum(x.reshape(-1, c)[rows_[..., k]] * w4[..., k, None]
+                          for k in range(4)).reshape(-1, 9 * c)
+            w_flat = w3.reshape(9 * c, cout)
+            mm_ms = time_ms(torch, lambda: torch.matmul(sampled, w_flat),
+                            warmup=2, iters=10)
+            del sampled, rows_, w4
+        length = n * ho * wo
+        flops = 2 * length * 9 * c * cout + 8 * length * 9 * c
+        nbytes = 4 * (n * h * w * c + length * 27 + 9 * c * cout
+                      + length * cout)
+        bound, by = bound_ms(flops, nbytes)
+        row = dict(shape=[n, h, w, c, cout], stride=stride, what=what,
+                   L=length, gflop=flops / 1e9, off_map_share=off_map,
+                   max_abs_err=err, max_abs_twin=scale,
+                   f64_err_kernel=err64_k, f64_err_twin=err64_t, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   matmul_of_sampled_stack_ms=mm_ms,
+                   tflops=flops / ms / 1e9)
+        print('phase e: K3 ' + json.dumps(row))
+        assert err <= K3_REL * scale, f'K3 disagrees with its twin: {what}'
+        assert off_map > 0, 'no sample fell off the map'
+        rows.append(row)
+    main = rows[0]
+    return dict(name='dcn_forward (K3)', route='cuda',
+                source='epropnp_tpu_torch/csrc/dcn_kernel.cu',
+                replaces='epropnp_tpu/ops/pallas_dcn.py:102',
+                max_abs_err=max(r['max_abs_err'] for r in rows),
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=None)
+
+
+def det_pnp_problem(torch, device, b, n, seed):
+    """A 4DoF problem seen by a camera at 1600x672: nuScenes-like focal
+    length, principal points shifted per object so that part of the
+    objects reach past the image-shape bounds and are clamped."""
+    from epropnp_tpu_torch.ops.pnp import PerspectiveCamera
+    from epropnp_tpu_torch.ops.pnp.lm_kernel import camera_to_fxfycxcy
+    from epropnp_tpu_torch.utils.synthetic import make_pnp_problem
+    p = make_pnp_problem(b, n, seed, dof=4, init_noise=(0.05, 0.1),
+                         focal=(1266.4, 1266.4), depth=(4.0, 20.0))
+    shift = np.random.default_rng(seed + 1).uniform(
+        [-150.0, -150.0], [1750.0, 820.0], (b, 2))
+    p['x2d'] = p['x2d'] + shift[:, None]
+    p['cams'][:, :2, 2] += shift
+    t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+         for k, v in p.items()}
+    cam = PerspectiveCamera.from_img_shape(
+        t['cams'], torch.tensor([672.0, 1600.0], device=device).expand(b, 2),
+        allowed_border=200.0)
+    bounds = torch.cat([torch.full((b, 2), cam.lb, device=device), cam.ub],
+                       -1).contiguous()
+    return (t['x3d'], t['x2d'], t['w2d'],
+            camera_to_fxfycxcy(t['cams']).contiguous(), bounds, t['pose0'])
+
+
+def phase_f(torch, device):
+    """K1 at dof 4 with bounds in fast mode against its twin."""
+    from epropnp_tpu_torch.ops.pnp import lm_kernel as k1
+    rows = []
+    for b, n, iters, what in ((98304, 16, 3, 'Det RSLM proposals'),
+                              (1536, 128, 5, 'Det refine')):
+        x3d, x2d, w2d, cam, bounds, pose0 = det_pnp_problem(
+            torch, device, b, n, 60 + n)
+        delta = torch.full((b,), 10.0 / n, device=device)
+        kw = dict(bounds=bounds, dof=4, num_iter=iters, fast_mode=True,
+                  z_min=0.1)
+        run_k = lambda: k1.lm_solve_cuda(x3d, x2d, w2d, cam, delta, pose0, **kw)  # noqa: E731,E501
+        run_t = lambda: k1.lm_solve_reference(x3d, x2d, w2d, cam, delta, pose0, **kw)  # noqa: E731,E501
+        pk, ck = run_k()
+        pt, ct = run_t()
+        f64 = [a.double() for a in (x3d, x2d, w2d, cam, delta, pose0)]
+        kw64 = dict(kw, bounds=bounds.double())
+        p64, c64 = k1.lm_solve_reference(*f64, **kw64)
+        torch.cuda.synchronize()
+        pk, ck, pt, ct, p64, c64 = (a.cpu().numpy()
+                                    for a in (pk, ck, pt, ct, p64, c64))
+        proj = x2d.cpu().numpy()
+        lo, hi = bounds[:, None, :2].cpu().numpy(), bounds[:, None, 2:].cpu(
+            ).numpy()
+        clamped = float(((proj < lo) | (proj > hi)).any(-1).any(-1).mean())
+        finite = np.isfinite(ct)
+        frac_c = agree(ck, ct, K1_RTOL, 0.0).mean()
+        frac_p = agree(pk, pt, K1_RTOL, 1e-2).mean()
+        spread_c = agree(ct, c64, K1_RTOL, 0.0).mean()
+        spread_p = agree(pt, p64, K1_RTOL, 1e-2).mean()
+        ms = time_ms(torch, run_k, iters=20)
+        plain_ms = time_ms(torch, run_t, iters=5)
+        bound, by = k1_bound(b, n, 4, iters)
+        row = dict(B=b, N=n, num_iter=iters, what=what,
+                   objects_past_bounds=clamped,
+                   twin_finite=float(finite.mean()),
+                   cost_agree=float(frac_c), pose_agree=float(frac_p),
+                   twin_f32_vs_f64_cost_agree=float(spread_c),
+                   twin_f32_vs_f64_pose_agree=float(spread_p),
+                   max_abs_cost_err=float(np.nanmax(np.abs(ck - ct))),
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        # the kernel against the f64 twin, beside the f32 twin against it:
+        # where the problem itself amplifies f32 rounding (objects whose
+        # clamped points keep their Jacobian rows in fast mode), the f32
+        # twin misses the f64 answer as often as the kernel does
+        row['kernel_vs_f64_cost_agree'] = float(agree(ck, c64, K1_RTOL,
+                                                      0.0).mean())
+        row['finiteness_differs'] = float(
+            (np.isfinite(pk).all(-1) != np.isfinite(pt).all(-1)).mean())
+        print('phase f: K1 dof 4 + bounds ' + json.dumps(row))
+        assert row['finiteness_differs'] <= 1 - K1_MIN_FRAC, \
+            'K1 non-finite where its twin is finite'
+        assert (frac_c >= K1_MIN_FRAC and frac_p >= K1_MIN_FRAC) or (
+            row['kernel_vs_f64_cost_agree'] >= spread_c - 0.005), \
+            f'K1 dof 4 disagrees with its twin at {(b, n)}'
+        rows.append(row)
+    return rows
+
+
+def det_frames(seed, num=6, h=900, w=1600):
+    """``num`` random camera frames (h, w, 3) in [0, 255] and their
+    intrinsics (one nuScenes sample's six cameras, at random)."""
+    r = np.random.default_rng(seed)
+    imgs = [r.uniform(0, 255, (h, w, 3)).astype(np.float32)
+            for _ in range(num)]
+    return imgs, [np.array(NUSCENES_K) for _ in range(num)]
+
+
+def build_det_model(torch, device, seed, img_hw=(672, 1600)):
+    """v1b with K1 on the path, seeded random weights, non-zero DCN offset
+    weights, BatchNorm statistics calibrated on one seeded batch of 6."""
+    import dataclasses
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det.config import DetConfig
+    from epropnp_tpu_torch.ops.deform_conv import DeformConv
+    cfg = DetConfig.v1b()
+    cfg = dataclasses.replace(cfg, pnp=dataclasses.replace(cfg.pnp,
+                                                           use_pallas=True))
+    torch.manual_seed(seed)
+    model = api.init_detector(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DeformConv):
+                c = mod.conv_offset.in_channels
+                mod.conv_offset.weight.normal_(0, 0.5 / (9 * c) ** 0.5,
+                                               generator=gen)
+    inp = torch.randn((6,) + tuple(img_hw) + (3,), generator=gen,
+                      device=device)
+    calibrate_batchnorm(torch, model.backbone, inp)
+    # scale every bottleneck's residual branch (its last BatchNorm) by
+    # RESIDUAL_SCALE: at scale 1 this random ResNet-101 is chaotic, and
+    # f32 rounding alone moves the head's outputs by O(1) (CPU f32 against
+    # f64); at 0.3 they stay within ~1e-5, so card and CPU can be compared
+    with torch.no_grad():
+        for mod in model.backbone.modules():
+            if hasattr(mod, 'bn3'):
+                mod.bn3.weight.mul_(RESIDUAL_SCALE)
+    return cfg, model
+
+
+def phase_g(torch, device, num_requests=3):
+    """Det serving: 3 requests of 6 frames, each through K3 36 times and
+    K1 twice; then a 320x800 image on the card against the CPU twins."""
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det import test as dtest
+    from epropnp_tpu_torch.ops import dcn_kernel
+    from epropnp_tpu_torch.ops.pnp import lm_kernel
+    t0 = time.perf_counter()
+    cfg, model = build_det_model(torch, device, seed=0)
+    torch.cuda.synchronize()
+    print(f'phase g: model built and calibrated in '
+          f'{time.perf_counter() - t0:.1f} s')
+    time_dense_conv(torch, model)
+    infer = dtest.make_inference_fn(model, cfg, min_fcos_score=0.0)
+    lat = []
+    for req in range(num_requests + 1):  # request 0 warms up
+        imgs, ks = det_frames(100 + req)
+        gen = torch.Generator().manual_seed(req)
+        torch.cuda.synchronize()
+        k3_0, k1_0 = dcn_kernel.launches, lm_kernel.launches
+        t0 = time.perf_counter()
+        _, out3d = api.inference_detector(model, cfg, imgs, ks,
+                                          infer_fn=infer, rng=gen)
+        dt = time.perf_counter() - t0
+        k3, k1 = dcn_kernel.launches - k3_0, lm_kernel.launches - k1_0
+        live = np.concatenate([a for im in out3d for a in im], 0)
+        print(f'phase g: request {req}{" (warm-up)" if not req else ""}: 6 '
+              f'frames, latency {dt * 1e3:.3f} ms, K3 launches {k3}, K1 '
+              f'launches {k1}, live objects {len(live)}, '
+              f'finite={bool(np.isfinite(live).all())}')
+        assert k3 == 36, 'Det request: K3 not launched 36 times'
+        assert k1 == 2, 'Det request: K1 not launched for proposals + refine'
+        assert np.isfinite(live).all(), 'non-finite live box'
+        if req:
+            lat.append(dt)
+    print('phase g: latency per 6-frame request (ms): '
+          + json.dumps([round(v * 1e3, 3) for v in lat]))
+    time_host_pipeline(imgs, ks)
+    kernels = profile_once(torch, lambda: api.inference_detector(
+        model, cfg, imgs, ks, infer_fn=infer,
+        rng=torch.Generator().manual_seed(0)), 'det serving', top=12)
+    if kernels:
+        total = sum(k[1] for k in kernels)
+        share = lambda *keys: sum(  # noqa: E731
+            k[1] for k in kernels if any(s in k[0].lower() for s in keys))
+        k3_ms = share('dcn_forward')
+        conv_ms = share('cudnn', 'conv', 'fprop', 'implicit_gemm')
+        pnp_ms = share('lm_solve')
+        print('phase g: device time by kind: ' + json.dumps(dict(
+            total_ms=total, k3_ms=k3_ms, cudnn_conv_ms=conv_ms,
+            k1_ms=pnp_ms, k3_share=k3_ms / total,
+            cudnn_conv_share=conv_ms / total, k1_share=pnp_ms / total)))
+    rel, rel64, pose_close, pose_agree = reduced_size_agreement(
+        torch, model, cfg)
+    print(f'phase g: 320x800 card vs CPU twins: dense max rel err {rel:.3e}'
+          f' (rule {DET_DENSE_REL:g}; CPU f32 vs f64 {rel64:.3e}), poses '
+          f'within 1e-3 {pose_close:.4f}, or of equal cost {pose_agree:.4f}')
+    assert rel <= DET_DENSE_REL, 'dense outputs: card and CPU disagree'
+    assert pose_agree >= 0.99, 'poses: card and CPU twins disagree'
+    return lat
+
+
+def time_host_pipeline(imgs, ks):
+    """The host part of a request alone: the numpy pipeline of its 6
+    frames (crop, dense x2d maps, normalisation) and the stacking."""
+    from epropnp_tpu_torch.det.pipelines import (
+        REFERENCE_CROP_BOX, default_pipeline)
+    t0 = time.perf_counter()
+    samples = [default_pipeline(dict(img=img, cam_intrinsic=k),
+                                crop_box=REFERENCE_CROP_BOX)
+               for img, k in zip(imgs, ks)]
+    t1 = time.perf_counter()
+    for key in ('img', 'img_dense_x2d', 'img_dense_x2d_mask'):
+        np.stack([s[key] for s in samples])
+    t2 = time.perf_counter()
+    print(f'phase g: host pipeline of 6 frames {(t1 - t0) * 1e3:.3f} ms, '
+          f'stacking {(t2 - t1) * 1e3:.3f} ms')
+
+
+def time_dense_conv(torch, model):
+    """The head's dense-stage 3x3 conv 256 -> 128 at stride 8 (6 x 84 x
+    200) as served (channels-last, cuDNN's exhaustive algorithm search)
+    and with cuDNN's default heuristics, which pick FFT tiling there
+    (NCHW tensors: a separate entry in PyTorch's algorithm cache)."""
+    import torch.nn.functional as F
+    conv = model.bbox_head.convs[1].conv
+    x = torch.randn((6, conv.in_channels, 84, 200),
+                    device=next(model.parameters()).device)
+    x_cl = x.to(memory_format=torch.channels_last)
+    w = conv.weight.detach().contiguous()
+    with torch.no_grad():
+        served = time_ms(torch, lambda: conv(x_cl), warmup=1, iters=3)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            heur = time_ms(torch, lambda: F.conv2d(x, w, padding=1),
+                           warmup=1, iters=2)
+    print(f'phase g: dense conv {conv.in_channels}->{conv.out_channels} at '
+          f'6x84x200: {served:.3f} ms as served (exhaustive search), '
+          f'{heur:.3f} ms with cuDNN default heuristics')
+
+
+def reduced_size_agreement(torch, model, cfg, seed=7):
+    """One 320x800 image: the dense stage on the card (K3) against a CPU
+    copy of the model (K3's twin), then everything after it (subheads,
+    RSLM + K1 or its twin, NMS) from the card's dense outputs on both
+    devices, with one CPU generator feeding both the same draws.
+
+    Returns (max over dense outputs of max|card - cpu| / max|cpu|, the
+    same for the CPU f32 outputs against f64, the share of the objects
+    whose 4DoF pose agrees within 1e-3 * (|ref| + 1), and the share that
+    agrees or whose two poses cost the same within 1e-4 on the CPU's
+    problem: a far object's flat cost valley, where f32 rounding picks
+    another point of equal cost)."""
+    import copy
+    from epropnp_tpu_torch.det import test as dtest
+    from epropnp_tpu_torch.det.pipelines import default_pipeline
+    from epropnp_tpu_torch.ops.pnp import evaluate_pnp
+    device = next(model.parameters()).device
+    imgs, ks = det_frames(seed, num=1, h=320, w=800)
+    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]))
+    model_cpu = copy.deepcopy(model).cpu()
+    rel = 0.0
+    poses = []
+    for first, dev, m in ((True, device, model),
+                          (False, torch.device('cpu'), model_cpu)):
+        t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            np.asarray(a)[None], dtype=dt).to(dev)
+        infer = dtest.make_inference_fn(m, cfg, min_fcos_score=0.0)
+        dense = infer.dense(t(s['img']))
+        if first:
+            dense_card = dense
+        else:
+            flat_cpu = [a for o in dense[0] for a in o] + list(dense[1:])
+            flat_card = [a for o in dense_card[0] for a in o] + list(
+                dense_card[1:])
+            rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                      for a, b in zip(flat_card, flat_cpu))
+        moved = ([type(o)(*(a.to(dev) for a in o)) for o in dense_card[0]],
+                 dense_card[1].to(dev), dense_card[2].to(dev))
+        args = (moved, t(ks[0]), t(s['img_shape']), t(s['ori_shape']),
+                t(s['flip'], torch.bool), t(s['img_dense_x2d']),
+                t(s['img_dense_x2d_mask']))
+        res = infer.post(*args, rng=torch.Generator().manual_seed(seed))
+        poses.append(res.bbox_3d[:, 3:].cpu())
+    x3d, x2d, w2d, camera, cost_fun = infer.pnp_problem(*args)[2:]
+    with torch.no_grad():
+        costs = [evaluate_pnp(x3d, x2d, w2d, p, camera, cost_fun,
+                              out_cost=True).cost.numpy() for p in poses]
+        img64 = torch.as_tensor(s['img'][None], dtype=torch.float64)
+        dense64 = dtest.make_inference_fn(model_cpu.double(), cfg).dense(
+            img64)
+    poses = [p.numpy() for p in poses]
+    same_nan = (np.isnan(poses[0]) == np.isnan(poses[1])).all(-1)
+    close = agree(np.nan_to_num(poses[0]), np.nan_to_num(poses[1]), 1e-3,
+                  1.0) & same_nan
+    flat = agree(costs[0], costs[1], 1e-4, 0.0)
+    flat64 = [a for o in dense64[0] for a in o] + list(dense64[1:])
+    rel64 = max(float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(flat_cpu, flat64))
+    return rel, rel64, float(close.mean()), float((close | flat).mean())
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -429,9 +855,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's exhaustive algorithm search for every convolution, set before
+    # the first one (PyTorch caches the algorithm per shape): the default
+    # f32 heuristics run several Det convs as FFT tiling (phase g)
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark_limit = 0
     device = torch.device('cuda', 0)
 
     from epropnp_tpu_torch import kernels
+    from epropnp_tpu_torch.ops import dcn_kernel
     from epropnp_tpu_torch.ops.pnp import lm_kernel, rslm_kernel
     t0 = time.perf_counter()
     lib_path = kernels.build()
@@ -445,41 +877,47 @@ def main() -> int:
     print(gpu_name_and_limit())
 
     failed, entries = [], {}
-    for name, phase in (('a', phase_a), ('b', phase_b)):
+    # the kernels against their twins (phases a, b: K1, K2; e: K3; f: K1
+    # in the Det mode); these launches are not the main path's
+    for name, phase in (('a', phase_a), ('b', phase_b), ('e', phase_e),
+                        ('f', phase_f)):
         try:
             entries[name] = phase(torch, device)
         except Exception:  # noqa: BLE001 - report every phase, then fail
             traceback.print_exc()
             failed.append(name)
 
-    # the main path: counters from 0, read right after phases c and d
+    # the main path: counters from 0, read right after phases c, d and g
     lm_kernel.launches = 0
     rslm_kernel.launches = 0
-    for name, phase in (('c', phase_c), ('d', phase_d)):
+    dcn_kernel.launches = 0
+    for name, phase in (('c', phase_c), ('d', phase_d), ('g', phase_g)):
         try:
             phase(torch, device)
         except Exception:  # noqa: BLE001
             traceback.print_exc()
             failed.append(name)
     torch.cuda.synchronize()
-    counts = {'a': lm_kernel.launches, 'b': rslm_kernel.launches}
+    counts = {'a': lm_kernel.launches, 'b': rslm_kernel.launches,
+              'e': dcn_kernel.launches}
     print(f'launches on the main path: lm_solve (K1) {counts["a"]}, '
-          f'rslm_init (K2) {counts["b"]}')
-    for key in counts:  # phase a checks K1, phase b K2
+          f'rslm_init (K2) {counts["b"]}, dcn_forward (K3) {counts["e"]}')
+    for key in counts:  # phase a checks K1, phase b K2, phase e K3
         if counts[key] == 0:
             failed.append(f'{key}: kernel not launched on the main path')
         if key in entries:
             entries[key]['launches'] = counts[key]
 
-    if entries:
-        print(json.dumps({'kernels': [entries[k] for k in ('a', 'b')
-                                      if k in entries]}))
+    rows = [entries[k] for k in ('a', 'b', 'e') if k in entries]
+    if rows:
+        print(json.dumps({'kernels': rows}))
     if failed:
         print(f'chip_smoke: FAILED phases {failed}', file=sys.stderr)
         return 1
+    # the run uses one card, whatever the host exposes
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        'count': 1}}))
     return 0
 
 

@@ -1,0 +1,109 @@
+"""3D box geometry for Det serving (PyTorch), counterpart of
+``epropnp_tpu/core/bbox_3d/misc.py``: box corners, clipping of box edges
+against a plane, 3D-to-2D boxes and the per-image BEV NMS glue. Box
+layout ``bbox_3d = [l, h, w, x, y, z, ry]`` (camera frame, y down).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...ops.pnp.common import yaw_to_rot_mat
+from .nms import nms_rotated
+
+# corner layout and edges of a camera-frame box
+EDGE_CORNER_IDX = np.array(
+    [[0, 1], [1, 2], [2, 3], [3, 0], [4, 5], [5, 6], [6, 7], [7, 4],
+     [0, 4], [1, 5], [2, 6], [3, 7]])
+_UNIT_CORNERS = np.array(
+    [[0.5, 0.5, 0.5], [0.5, 0.5, -0.5], [-0.5, 0.5, -0.5], [-0.5, 0.5, 0.5],
+     [0.5, -0.5, 0.5], [0.5, -0.5, -0.5], [-0.5, -0.5, -0.5],
+     [-0.5, -0.5, 0.5]], dtype=np.float32)
+
+
+def compute_box_3d(bbox_3d: torch.Tensor) -> torch.Tensor:
+    """(*, 7) [l, h, w, x, y, z, ry] -> corners (*, 8, 3)."""
+    rot = yaw_to_rot_mat(bbox_3d[..., 6])
+    corners = torch.as_tensor(_UNIT_CORNERS, dtype=bbox_3d.dtype,
+                              device=bbox_3d.device) * bbox_3d[..., None, :3]
+    return torch.einsum('...ij,...nj->...ni', rot, corners) \
+        + bbox_3d[..., None, 3:6]
+
+
+def edge_intersection(corners, clip_axis: int, clip_val, greater: bool,
+                      edge_valid_mask=None):
+    """Clip the 12 box edges against ``coord > clip_val`` (or ``<``).
+
+    All candidate intersections are computed from the entry state and
+    written in edge order (later edges win on a shared corner), as the
+    reference's nonzero scatter. corners (bs, 8, d); clip_val (bs,).
+    Returns (new_corners, new_inside (bs, 8), edge_valid_mask (bs, 12)).
+    """
+    cmp = torch.gt if greater else torch.lt
+    bs = corners.shape[0]
+    e0 = torch.as_tensor(EDGE_CORNER_IDX[:, 0], device=corners.device)
+    e1 = torch.as_tensor(EDGE_CORNER_IDX[:, 1], device=corners.device)
+    if edge_valid_mask is None:
+        edge_valid_mask = torch.ones((bs, 12), dtype=torch.bool,
+                                     device=corners.device)
+    inside = cmp(corners[..., clip_axis], clip_val[:, None])     # (bs, 8)
+    clipped = (inside[:, e0] ^ inside[:, e1]) & edge_valid_mask  # (bs, 12)
+    p0, p1 = corners[:, e0, :], corners[:, e1, :]
+    a0, a1 = p0[..., clip_axis], p1[..., clip_axis]
+    w0 = a1 - clip_val[:, None]
+    w1 = clip_val[:, None] - a0
+    den = torch.where(a1 == a0, torch.full_like(a1, 1e-12), a1 - a0)
+    inv = torch.clamp(1.0 / den, -1e6, 1e6)
+    inter = (p0 * w0[..., None] + p1 * w1[..., None]) * inv[..., None]
+    clip_idx = torch.where(cmp(a0, clip_val[:, None]), e1.expand(bs, 12),
+                           e0.expand(bs, 12))
+    new_corners, new_inside = corners, inside
+    slots = torch.arange(corners.shape[1], device=corners.device)
+    for e in range(12):
+        write = (clip_idx[:, e:e + 1] == slots) & clipped[:, e:e + 1]
+        new_corners = torch.where(write[..., None], inter[:, e:e + 1, :],
+                                  new_corners)
+        new_inside = new_inside | write
+    edge_valid_mask = edge_valid_mask & new_inside[:, e0] & new_inside[:, e1]
+    return new_corners, new_inside, edge_valid_mask
+
+
+def bboxes_3d_to_2d(bbox_3d, cam_intrinsic, imsize, z_clip: float = 0.1,
+                    min_size: float = 4.0):
+    """(bs, 7) boxes -> (bs, 4) image boxes and (bs,) validity (a box of
+    at least ``min_size`` pixels on each side); imsize (bs, 2) [h, w]."""
+    bs = bbox_3d.shape[0]
+    corners = compute_box_3d(bbox_3d)
+    zc = torch.full((bs,), z_clip, dtype=bbox_3d.dtype, device=bbox_3d.device)
+    corners, in_front, _ = edge_intersection(corners, 2, zc, True)
+    pts = torch.einsum('...ni,...ji->...nj', corners, cam_intrinsic)
+    pts_2d = pts[..., :2] / torch.clamp(pts[..., 2:], min=z_clip) + 0.5
+    wh = imsize.flip(-1)
+    big = torch.where(in_front[..., None], pts_2d,
+                      wh[:, None, :].expand_as(pts_2d))
+    x0y0 = torch.clamp(big.min(1).values, min=0.0)
+    small = torch.where(in_front[..., None], pts_2d, 0.0)
+    x1y1 = torch.minimum(small.max(1).values, wh)
+    bbox = torch.cat([x0y0, x1y1], 1)
+    return bbox, (x1y1 - x0y0).min(1).values >= min_size
+
+
+def batched_bev_nms_per_image(bbox_3d: torch.Tensor,
+                              class_inds: torch.Tensor, n_img: int,
+                              nms_thr: float = 0.25) -> torch.Tensor:
+    """BEV NMS over image-contiguous blocks, classes kept apart by the
+    coordinate-offset trick within each image. bbox_3d (n_img * k, 8+)
+    [l, h, w, x, y, z, ry, score, ...] -> (n_img * k,) keep."""
+    k = bbox_3d.shape[0] // n_img
+    b = bbox_3d.reshape(n_img, k, bbox_3d.shape[-1])
+    groups = class_inds.reshape(n_img, k)
+    if k <= 1:
+        return torch.ones(n_img * k, dtype=torch.bool, device=b.device)
+    bev = torch.stack([b[..., 3], b[..., 5], b[..., 0], b[..., 2], b[..., 6]],
+                      -1)
+    span = ((bev[..., :2] + bev[..., 2:4]).amax((1, 2))
+            - (bev[..., :2] - bev[..., 2:4]).amin((1, 2)))
+    offset = (span * 2.0)[:, None] * groups.to(bev.dtype)
+    bev = torch.cat([bev[..., :2] + offset[..., None], bev[..., 2:]], -1)
+    return nms_rotated(bev, b[..., 7], nms_thr).reshape(-1)

@@ -3,11 +3,13 @@
 // Replaces epropnp_tpu/ops/pnp/pallas_lm.py::lm_solve_pallas (body
 // _make_kernel, with _evaluate, _chol_solve and _pose_add). Computes, for
 // every object, a fixed number of steps: projection, Huber cost + IRLS
-// rescale, analytic Jacobian, the 21 JtJ and 6 gradient sums, a damped
-// Cholesky solve, the tangent pose update and, outside fast mode, the
-// Ceres-style trust-region accept/reject. Scope: 6DoF, no projection
-// bounds, no JtJ output (what the serving and bench paths run); the Pallas
-// kernel's dof 4, bounds and with_jtj options are not ported yet.
+// rescale, analytic Jacobian, the JtJ and gradient sums, a damped Cholesky
+// solve, the tangent pose update and, outside fast mode, the Ceres-style
+// trust-region accept/reject. Scope: fast mode (pure Gauss-Newton) at dof
+// 6 or 4, with or without per-object projection bounds (the 6DoF and Det
+// serving paths), and the trust region at dof 6 without bounds (the bench
+// path). The Pallas kernel's with_jtj output, and dof 4 or bounds in
+// trust-region mode, are not ported yet.
 //
 // What bounds it on an H100: per object the work is a reduction over N
 // points followed by a few hundred dependent scalar flops (Cholesky,
@@ -42,47 +44,52 @@ __device__ __forceinline__ void warp_allreduce(float* v) {
   }
 }
 
-template <bool FAST>
+template <int DOF, bool FAST, bool BOUNDS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
                 const float* __restrict__ w2d, const float* __restrict__ cam,
                 const float* __restrict__ delta,
+                const float* __restrict__ bounds,
                 const float* __restrict__ pose0, float* __restrict__ pose_out,
                 float* __restrict__ cost_out, int B, int N, LMParams prm) {
+  static_assert(FAST || (DOF == 6 && !BOUNDS),
+                "the trust region runs dof 6 without bounds");
+  constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (b >= B) return;  // the whole warp leaves together
 
   const ObjParams o = load_obj(cam, delta, b);
+  const Bounds bnd = BOUNDS ? load_bounds(bounds, b) : Bounds{};
   const float* px3 = x3d + (size_t)b * N * 3;
   const float* px2 = x2d + (size_t)b * N * 2;
   const float* pw2 = w2d + (size_t)b * N * 2;
 
   auto ev = [&](const float* pose, float& cost, float* jtj, float* g) {
     float r[9], t[3];
-    pose_rt(pose, r, t);
-    float acc[1 + kTri + kDof];
+    pose_rt<DOF>(pose, r, t);
+    float acc[1 + kT + kD];
 #pragma unroll
-    for (int i = 0; i < 1 + kTri + kDof; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 1 + kT + kD; ++i) acc[i] = 0.f;
     for (int n = lane; n < N; n += 32) {
-      accumulate_point<!FAST>(
-          r, t, o, prm.z_min, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
+      accumulate_point<!FAST, DOF, BOUNDS>(
+          r, t, o, prm.z_min, bnd, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
           __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
           __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1), acc[0], acc + 1,
-          acc + 1 + kTri);
+          acc + 1 + kT);
     }
-    warp_allreduce<1 + kTri + kDof>(acc);
+    warp_allreduce<1 + kT + kD>(acc);
     cost = acc[0];
 #pragma unroll
-    for (int i = 0; i < kTri; ++i) jtj[i] = acc[1 + i];
+    for (int i = 0; i < kT; ++i) jtj[i] = acc[1 + i];
 #pragma unroll
-    for (int i = 0; i < kDof; ++i) g[i] = acc[1 + kTri + i];
+    for (int i = 0; i < kD; ++i) g[i] = acc[1 + kT + i];
   };
 
-  float pose[kPoseDim];
+  float pose[kP];
 #pragma unroll
-  for (int i = 0; i < kPoseDim; ++i) pose[i] = pose0[b * kPoseDim + i];
-  float cost, jtj[kTri], g[kDof];
+  for (int i = 0; i < kP; ++i) pose[i] = pose0[b * kP + i];
+  float cost, jtj[kT], g[kD];
 
   if (FAST) {
     // pure Gauss-Newton; the cost is that at the pose before the last
@@ -90,13 +97,13 @@ lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
     cost = 0.f;
     for (int it = 0; it < prm.num_iter; ++it) {
       ev(pose, cost, jtj, g);
-      float step[kDof], pose_new[kPoseDim];
+      float step[kD], pose_new[kP];
 #pragma unroll
-      for (int a = 0; a < kDof; ++a) jtj[a * (a + 1) / 2 + a] += prm.eps;
-      chol_solve(jtj, g, step);
-      pose_add(pose, step, pose_new);
+      for (int a = 0; a < kD; ++a) jtj[a * (a + 1) / 2 + a] += prm.eps;
+      chol_solve<DOF>(jtj, g, step);
+      pose_add<DOF>(pose, step, pose_new);
 #pragma unroll
-      for (int i = 0; i < kPoseDim; ++i) pose[i] = pose_new[i];
+      for (int i = 0; i < kP; ++i) pose[i] = pose_new[i];
     }
   } else {
     ev(pose, cost, jtj, g);
@@ -107,44 +114,64 @@ lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < kPoseDim; ++i) pose_out[b * kPoseDim + i] = pose[i];
+    for (int i = 0; i < kP; ++i) pose_out[b * kP + i] = pose[i];
     cost_out[b] = cost;
   }
 }
 
-template <bool FAST>
+template <int DOF, bool FAST, bool BOUNDS>
 void launch(const float* x3d, const float* x2d, const float* w2d,
-            const float* cam, const float* delta, const float* pose0,
-            float* pose_out, float* cost_out, int B, int N,
-            const LMParams& prm, cudaStream_t stream) {
+            const float* cam, const float* delta, const float* bounds,
+            const float* pose0, float* pose_out, float* cost_out, int B,
+            int N, const LMParams& prm, cudaStream_t stream) {
   const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lm_solve_kernel<FAST><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      x3d, x2d, w2d, cam, delta, pose0, pose_out, cost_out, B, N, prm);
+  lm_solve_kernel<DOF, FAST, BOUNDS>
+      <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+          x3d, x2d, w2d, cam, delta, bounds, pose0, pose_out, cost_out, B, N,
+          prm);
 }
 
 }  // namespace
 }  // namespace epropnp
 
-// Plain C entry point (loaded with ctypes). Returns the cudaError_t of the
-// launch; 0 means the kernel was queued on ``stream``.
+// Plain C entry point (loaded with ctypes). ``bounds`` is (B, 4)
+// [lb_u, lb_v, ub_u, ub_v] or null. Returns the cudaError_t of the launch;
+// 0 means the kernel was queued on ``stream``; an option outside the
+// kernel's scope returns cudaErrorInvalidValue without a launch.
 extern "C" int epropnp_lm_solve(
     const float* x3d, const float* x2d, const float* w2d, const float* cam,
-    const float* delta, const float* pose0, float* pose_out, float* cost_out,
-    int B, int N, int fast_mode, int num_iter, float z_min, float eps,
-    float min_lm_diagonal, float max_lm_diagonal,
-    float min_relative_decrease, float initial_trust_region_radius,
-    float max_trust_region_radius, void* stream) {
+    const float* delta, const float* bounds, const float* pose0,
+    float* pose_out, float* cost_out, int B, int N, int dof, int fast_mode,
+    int num_iter, float z_min, float eps, float min_lm_diagonal,
+    float max_lm_diagonal, float min_relative_decrease,
+    float initial_trust_region_radius, float max_trust_region_radius,
+    void* stream) {
   if (B <= 0) return 0;
   epropnp::LMParams prm{num_iter, z_min, eps, min_lm_diagonal,
                         max_lm_diagonal, min_relative_decrease,
                         initial_trust_region_radius,
                         max_trust_region_radius};
   auto s = static_cast<cudaStream_t>(stream);
-  if (fast_mode)
-    epropnp::launch<true>(x3d, x2d, w2d, cam, delta, pose0, pose_out,
-                          cost_out, B, N, prm, s);
-  else
-    epropnp::launch<false>(x3d, x2d, w2d, cam, delta, pose0, pose_out,
-                           cost_out, B, N, prm, s);
+  const bool bnd = bounds != nullptr;
+#define EPROPNP_LM_LAUNCH(D, F, BD)                                      \
+  epropnp::launch<D, F, BD>(x3d, x2d, w2d, cam, delta, bounds, pose0,    \
+                            pose_out, cost_out, B, N, prm, s)
+  if (!fast_mode) {
+    if (dof != 6 || bnd) return (int)cudaErrorInvalidValue;
+    EPROPNP_LM_LAUNCH(6, false, false);
+  } else if (dof == 6) {
+    if (bnd)
+      EPROPNP_LM_LAUNCH(6, true, true);
+    else
+      EPROPNP_LM_LAUNCH(6, true, false);
+  } else if (dof == 4) {
+    if (bnd)
+      EPROPNP_LM_LAUNCH(4, true, true);
+    else
+      EPROPNP_LM_LAUNCH(4, true, false);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef EPROPNP_LM_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// Shared device code of the PnP kernels (6DoF poses [tx, ty, tz, qw, qi,
-// qj, qk], no projection bounds): per-point projection, Huber cost with the
-// IRLS sqrt-derivative rescale, the analytic pose Jacobian, the unrolled
-// damped Cholesky solve and the tangent-space pose update.
+// Shared device code of the PnP kernels: per-point projection, Huber cost
+// with the IRLS sqrt-derivative rescale, the analytic pose Jacobian, the
+// unrolled damped Cholesky solve and the tangent-space pose update, for
+// 6DoF poses [tx, ty, tz, qw, qi, qj, qk] and 4DoF poses [tx, ty, tz, yaw]
+// (template argument DOF, 6 by default).
 //
 // The arithmetic follows epropnp_tpu/ops/pnp/pallas_lm.py (_evaluate,
 // _chol_solve, _pose_add) term by term, so the plain PyTorch twins in
@@ -9,8 +10,11 @@
 //   * the z clamp divides by zc but keeps zc_raw in the numerator;
 //   * epsilons 1e-24 (squared residual) and 1e-10 (Huber derivative);
 //   * the quaternion is renormalised inside the evaluation;
+//   * 4DoF rotates by yaw about y: xr = c x + s z, yr = y, zr = -s x + c z;
+//   * with BOUNDS the projection is clamped into the per-object box
+//     [lb_u, ub_u] x [lb_v, ub_v] before the residual and the Jacobian;
 //   * with CLIP (trust-region mode) Jacobian rows are zeroed where the z
-//     clamp is active.
+//     clamp is active. Fast mode keeps them, also at an active bound clamp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +24,11 @@ namespace epropnp {
 constexpr int kDof = 6;       // tangent-space dimension
 constexpr int kPoseDim = 7;   // [t, q]
 constexpr int kTri = kDof * (kDof + 1) / 2;  // JtJ lower triangle
+
+template <int DOF>
+__host__ __device__ constexpr int pose_dim() { return DOF == 4 ? 4 : 7; }
+template <int DOF>
+__host__ __device__ constexpr int tri() { return DOF * (DOF + 1) / 2; }
 
 // Per-object camera and Huber delta.
 struct ObjParams {
@@ -44,12 +53,36 @@ __device__ __forceinline__ ObjParams load_obj(const float* cam,
   return o;
 }
 
+// Projection box of one object: [lb_u, ub_u] x [lb_v, ub_v].
+struct Bounds {
+  float lb_u, lb_v, ub_u, ub_v;
+};
+
+__device__ __forceinline__ Bounds load_bounds(const float* bounds, int b) {
+  return Bounds{bounds[b * 4 + 0], bounds[b * 4 + 1], bounds[b * 4 + 2],
+                bounds[b * 4 + 3]};
+}
+
 // Rotation matrix (row major) and translation of a pose.
+template <int DOF = 6>
 __device__ __forceinline__ void pose_rt(const float* pose, float* r,
                                         float* t) {
   t[0] = pose[0];
   t[1] = pose[1];
   t[2] = pose[2];
+  if constexpr (DOF == 4) {
+    const float c = cosf(pose[3]), s = sinf(pose[3]);
+    r[0] = c;
+    r[1] = 0.f;
+    r[2] = s;
+    r[3] = 0.f;
+    r[4] = 1.f;
+    r[5] = 0.f;
+    r[6] = -s;
+    r[7] = 0.f;
+    r[8] = c;
+    return;
+  }
   const float qn = rsqrtf(pose[3] * pose[3] + pose[4] * pose[4] +
                           pose[5] * pose[5] + pose[6] * pose[6] + 1e-24f);
   const float w = pose[3] * qn, i = pose[4] * qn, j = pose[5] * qn,
@@ -71,13 +104,20 @@ struct Proj {
   float xr, yr, zr, zc_raw, zc, u, v;
 };
 
+template <int DOF = 6>
 __device__ __forceinline__ Proj project(const float* r, const float* t,
                                         const ObjParams& o, float z_min,
                                         float x, float y, float z) {
   Proj p;
-  p.xr = r[0] * x + r[1] * y + r[2] * z;
-  p.yr = r[3] * x + r[4] * y + r[5] * z;
-  p.zr = r[6] * x + r[7] * y + r[8] * z;
+  if constexpr (DOF == 4) {  // r = [c 0 s; 0 1 0; -s 0 c]
+    p.xr = r[0] * x + r[2] * z;
+    p.yr = y;
+    p.zr = r[6] * x + r[8] * z;
+  } else {
+    p.xr = r[0] * x + r[1] * y + r[2] * z;
+    p.yr = r[3] * x + r[4] * y + r[5] * z;
+    p.zr = r[6] * x + r[7] * y + r[8] * z;
+  }
   const float xc = p.xr + t[0], yc = p.yr + t[1];
   p.zc_raw = p.zr + t[2];
   p.zc = fmaxf(p.zc_raw, z_min);
@@ -104,12 +144,19 @@ __device__ __forceinline__ float point_cost(const float* r, const float* t,
 }
 
 // Adds one point's cost, JtJ lower triangle (row-major) and gradient.
-template <bool CLIP>
+// BOUNDS (fast mode only) clamps u, v into the object's box; the Jacobian
+// keeps its rows there, as the reference's fast Gauss-Newton does.
+template <bool CLIP, int DOF = 6, bool BOUNDS = false>
 __device__ __forceinline__ void accumulate_point(
-    const float* r, const float* t, const ObjParams& o, float z_min, float x,
-    float y, float z, float ut, float vt, float wu, float wv, float& cost,
-    float* jtj, float* g) {
-  const Proj p = project(r, t, o, z_min, x, y, z);
+    const float* r, const float* t, const ObjParams& o, float z_min,
+    const Bounds& bnd, float x, float y, float z, float ut, float vt,
+    float wu, float wv, float& cost, float* jtj, float* g) {
+  static_assert(!(CLIP && BOUNDS), "bounds are run in fast mode only");
+  Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+  if constexpr (BOUNDS) {
+    p.u = fminf(fmaxf(p.u, bnd.lb_u), bnd.ub_u);
+    p.v = fminf(fmaxf(p.v, bnd.lb_v), bnd.ub_v);
+  }
   const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
   const float ss = ru * ru + rv * rv;
   const float s_sqrt = sqrtf(fmaxf(ss, 1e-24f));
@@ -123,24 +170,29 @@ __device__ __forceinline__ void accumulate_point(
   const float dv2 = (o.cy - p.v) / p.zc * live;
   const float swu = wu * rho, swv = wv * rho;
 
-  const float w0 = 2.f * p.xr, w1 = 2.f * p.yr, w2 = 2.f * p.zr;
-  float ju[kDof], jv[kDof];
+  float ju[DOF], jv[DOF];
   ju[0] = du0 * swu;
   ju[1] = 0.f;
   ju[2] = du2 * swu;
-  ju[3] = (-du2 * w1) * swu;
-  ju[4] = (-du0 * w2 + du2 * w0) * swu;
-  ju[5] = (du0 * w1) * swu;
   jv[0] = 0.f;
   jv[1] = dv1 * swv;
   jv[2] = dv2 * swv;
-  jv[3] = (dv1 * w2 - dv2 * w1) * swv;
-  jv[4] = (dv2 * w0) * swv;
-  jv[5] = (-dv1 * w0) * swv;
+  if constexpr (DOF == 4) {
+    ju[3] = (du0 * p.zr - du2 * p.xr) * swu;
+    jv[3] = (-dv2 * p.xr) * swv;
+  } else {
+    const float w0 = 2.f * p.xr, w1 = 2.f * p.yr, w2 = 2.f * p.zr;
+    ju[3] = (-du2 * w1) * swu;
+    ju[4] = (-du0 * w2 + du2 * w0) * swu;
+    ju[5] = (du0 * w1) * swu;
+    jv[3] = (dv1 * w2 - dv2 * w1) * swv;
+    jv[4] = (dv2 * w0) * swv;
+    jv[5] = (-dv1 * w0) * swv;
+  }
   const float ru_s = ru * rho, rv_s = rv * rho;
   int idx = 0;
 #pragma unroll
-  for (int a = 0; a < kDof; ++a) {
+  for (int a = 0; a < DOF; ++a) {
 #pragma unroll
     for (int b = 0; b <= a; ++b) jtj[idx++] += ju[a] * ju[b] + jv[a] * jv[b];
     g[a] += ju[a] * ru_s + jv[a] * rv_s;
@@ -148,11 +200,12 @@ __device__ __forceinline__ void accumulate_point(
 }
 
 // Solve (damped) x = -g for SPD ``a`` given as its lower triangle.
+template <int DOF = 6>
 __device__ __forceinline__ void chol_solve(const float* a, const float* g,
                                            float* x) {
-  float l[kTri];
+  float l[tri<DOF>()];
 #pragma unroll
-  for (int i = 0; i < kDof; ++i) {
+  for (int i = 0; i < DOF; ++i) {
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = a[i * (i + 1) / 2 + j];
@@ -162,28 +215,33 @@ __device__ __forceinline__ void chol_solve(const float* a, const float* g,
       l[i * (i + 1) / 2 + j] = (i == j) ? sqrtf(s) : s / l[j * (j + 1) / 2 + j];
     }
   }
-  float y[kDof];
+  float y[DOF];
 #pragma unroll
-  for (int i = 0; i < kDof; ++i) {
+  for (int i = 0; i < DOF; ++i) {
     float s = -g[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s -= l[i * (i + 1) / 2 + k] * y[k];
     y[i] = s / l[i * (i + 1) / 2 + i];
   }
 #pragma unroll
-  for (int i = kDof - 1; i >= 0; --i) {
+  for (int i = DOF - 1; i >= 0; --i) {
     float s = y[i];
 #pragma unroll
-    for (int k = i + 1; k < kDof; ++k) s -= l[k * (k + 1) / 2 + i] * x[k];
+    for (int k = i + 1; k < DOF; ++k) s -= l[k * (k + 1) / 2 + i] * x[k];
     x[i] = s / l[i * (i + 1) / 2 + i];
   }
 }
 
+template <int DOF = 6>
 __device__ __forceinline__ void pose_add(const float* pose, const float* step,
                                          float* out) {
   out[0] = pose[0] + step[0];
   out[1] = pose[1] + step[1];
   out[2] = pose[2] + step[2];
+  if constexpr (DOF == 4) {
+    out[3] = pose[3] + step[3];
+    return;
+  }
   const float w = pose[3], i = pose[4], j = pose[5], k = pose[6];
   const float d0 = step[3], d1 = step[4], d2 = step[5];
   const float qw = w + (i * d0 + j * d1 + k * d2);

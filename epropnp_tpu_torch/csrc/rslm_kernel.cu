@@ -207,8 +207,8 @@ __global__ void rslm_init_kernel(
       for (int i = 0; i < kDof; ++i) g[i] = 0.f;
       for (int i = 0; i < K; ++i) {
         const float* q7 = my + i * 7;
-        accumulate_point<true>(r, t, o, prm.z_min, q7[0], q7[1], q7[2],
-                               q7[3], q7[4], q7[5], q7[6], c, jtj, g);
+        accumulate_point<true>(r, t, o, prm.z_min, Bounds{}, q7[0], q7[1],
+                               q7[2], q7[3], q7[4], q7[5], q7[6], c, jtj, g);
       }
     };
     float jtj[kTri], g[kDof];

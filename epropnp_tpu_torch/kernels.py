@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``. The
-build runs at first use, from the package's own sources only, into
+Each source is compiled with ``nvcc`` for ``sm_90a`` (one compiler process
+per source, all started together), and the objects are linked into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The build runs at first use, from the package's own sources only, into
 ``build/`` beside the package; the file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library never loads.
 A missing compiler or a failed build raises.
@@ -21,16 +22,18 @@ import subprocess
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                           '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions).
 _SIGNATURES = {
-    'epropnp_lm_solve': [_P] * 8 + [_I] * 4 + [_F] * 7 + [_P],
+    'epropnp_lm_solve': [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],
     'epropnp_rslm_init': [_P] * 8 + [_I] * 7 + [_F] * 7 + [_P],
+    'epropnp_dcn_forward': [_P] * 5 + [_I] * 8 + [_F] + [_P],
 }
 
 
@@ -58,7 +61,7 @@ def library_path() -> str:
 def build() -> str:
     """Compile ``csrc/*.cu`` unless the library is already built.
 
-    Returns the library path. The compiler's output (``-Xptxas -v``:
+    Returns the library path. The compilers' output (``-Xptxas -v``:
     registers, shared memory and spills per kernel) is kept beside it as
     ``<library>.log``.
     """
@@ -66,15 +69,36 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')))
+    nvcc = _nvcc()
     tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    jobs = []
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu'))):
+        obj = f'{tmp}.{os.path.basename(src)}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(' '.join(cmd) + '\n' + text)
+        if proc.returncode != 0:
+            failed.append(f'{cmd[-3]} ({proc.returncode})')
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, '-shared', '-o', tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f'link ({proc.returncode})')
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(out + '.log', 'w') as f:
-        f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}')
+        f.write('\n'.join(log))
+    if failed:
+        raise RuntimeError(f'nvcc failed: {failed}\n' + '\n'.join(log))
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

@@ -5,7 +5,10 @@ Submodules carry torchvision's names (``conv1``, ``bn1``,
 ``layer{s}.{i}.conv{j}``, ``layer{s}.{i}.downsample.{0,1}``), so a
 torchvision-style state dict loads as it is. The public layout is the JAX
 package's: NHWC in, a tuple of NHWC stage features out; the convolutions
-run in NCHW inside. Bottleneck blocks are plain (no deformable conv).
+run in NCHW inside (a channels-last model keeps them in NHWC memory with no
+copy). Bottleneck blocks of the ``dcn_stages`` use a deformable 3x3
+``conv2`` (DCNv2, mmcv's bias-free ``ModulatedDeformConv2dPack`` layout),
+the strided first block included, as the Det backbone (R101-DCN).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ...ops.deform_conv import DeformConv
 
 # depth -> (block, stage_sizes, stage_channels(last = feat dim))
 resnet_spec = {
@@ -57,11 +62,17 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 use_dcn: bool = False, dcn_modulation_scale: float = 2.0):
         super().__init__()
+        self.use_dcn = use_dcn
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        if use_dcn:
+            self.conv2 = DeformConv(planes, planes, stride, bias=False,
+                                    modulation_scale=dcn_modulation_scale)
+        else:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = _bn(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = _bn(planes * 4)
@@ -70,7 +81,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
+        if self.use_dcn:  # NHWC views in and out of the deformable conv
+            out = self.conv2(out.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        else:
+            out = self.conv2(out)
+        out = torch.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + identity)
@@ -83,9 +98,13 @@ class ResNetBackbone(nn.Module):
         depth: 18/34/50/101/152.
         out_indices: which stage outputs (1-based: stage 1 is stride 4,
             stage 4 is stride 32) to return.
+        dcn_stages: 1-based stages whose bottlenecks use DCNv2.
+        dcn_modulation_scale: 2.0 (from-scratch default) or 1.0 (mmcv).
     """
 
-    def __init__(self, depth: int = 34, out_indices: Sequence[int] = (4,)):
+    def __init__(self, depth: int = 34, out_indices: Sequence[int] = (4,),
+                 dcn_stages: Sequence[int] = (),
+                 dcn_modulation_scale: float = 2.0):
         super().__init__()
         block_name, stage_sizes, stage_channels = resnet_spec[depth]
         block = BasicBlock if block_name == 'basic' else Bottleneck
@@ -99,7 +118,11 @@ class ResNetBackbone(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if stage > 1 and i == 0 else 1
-                blocks.append(block(inplanes, channels, stride))
+                kwargs = {}
+                if block is Bottleneck and stage in dcn_stages:
+                    kwargs = dict(use_dcn=True,
+                                  dcn_modulation_scale=dcn_modulation_scale)
+                blocks.append(block(inplanes, channels, stride, **kwargs))
                 inplanes = channels * block.expansion
             self.add_module(f'layer{stage}', nn.Sequential(*blocks))
         self.feat_channels = tuple(c * block.expansion for c in stage_channels)

@@ -1,0 +1,1 @@
+"""PyTorch port: see the package docstring."""

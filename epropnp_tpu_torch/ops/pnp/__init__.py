@@ -17,3 +17,4 @@ from .common import (  # noqa: F401
 from .camera import PerspectiveCamera  # noqa: F401
 from .cost_fun import AdaptiveHuberPnPCost, HuberPnPCost, huber_kernel  # noqa: F401
 from .levenberg_marquardt import LMSolver, RSLMSolver  # noqa: F401
+from .epropnp import EProPnP4DoF, EProPnPBase  # noqa: F401

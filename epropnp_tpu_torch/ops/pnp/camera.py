@@ -40,6 +40,16 @@ class PerspectiveCamera:
     ub: Optional[Union[float, torch.Tensor]] = None
     z_min: float = 0.1
 
+    @classmethod
+    def from_img_shape(cls, cam_mats, img_shape, z_min: float = 0.1,
+                       allowed_border: float = 200.0) -> 'PerspectiveCamera':
+        """Bounds from an image shape (*, 2) in [h, w]: ``lb = -0.5 -
+        border`` (a scalar), ``ub = [w, h] - 0.5 + border``."""
+        img_shape = torch.as_tensor(img_shape, device=cam_mats.device)
+        ub = img_shape.flip(-1) + (-0.5 + allowed_border)
+        return cls(cam_mats=cam_mats, lb=-0.5 - allowed_border, ub=ub,
+                   z_min=z_min)
+
     def replace(self, **kwargs) -> 'PerspectiveCamera':
         return dataclasses.replace(self, **kwargs)
 

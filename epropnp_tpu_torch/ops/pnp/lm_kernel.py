@@ -8,10 +8,12 @@ kernel term by term (``_evaluate`` below mirrors ``pnp_common.cuh``), so
 the two differ only in summation order.
 
 Scope: zero-skew pinhole cameras given as (B, 4) ``[fx, fy, cx, cy]`` and
-per-object Huber deltas. The twin also takes dof 4, projection bounds
+per-object Huber deltas. The twin takes dof 4 and 6, projection bounds
 (B, 4) ``[lb_u, lb_v, ub_u, ub_v]`` and the final JtJ (``with_jtj``) that
-forms the pose covariance; the kernel runs dof 6 without bounds or JtJ
-(the serving and bench paths) and raises on the rest.
+forms the pose covariance, in both modes. The kernel runs fast mode at dof
+6 or 4, with or without bounds (the 6DoF and Det serving paths), and the
+trust region at dof 6 without bounds (the bench path); it raises on the
+rest.
 """
 
 from __future__ import annotations
@@ -253,12 +255,16 @@ def lm_solve_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
     return out
 
 
-def check_kernel_scope(name, dof, bounds=None, with_jtj=False):
-    """Raise on the options the CUDA kernels do not run (yet)."""
-    if dof != 6 or bounds is not None or with_jtj:
+def check_kernel_scope(name, dof, bounds=None, with_jtj=False,
+                       fast_mode=True):
+    """Raise on the options the K1 CUDA kernel does not run (yet)."""
+    if with_jtj or dof not in (4, 6) or (
+            not fast_mode and (dof != 6 or bounds is not None)):
         raise NotImplementedError(
-            f'{name}: the CUDA kernel runs dof 6 without bounds or JtJ; got '
-            f'dof={dof}, bounds={bounds is not None}, with_jtj={with_jtj}')
+            f'{name}: the CUDA kernel runs fast mode at dof 6 or 4 with or '
+            'without bounds, and the trust region at dof 6 without bounds, '
+            f'never JtJ; got dof={dof}, bounds={bounds is not None}, '
+            f'fast_mode={fast_mode}, with_jtj={with_jtj}')
 
 
 def _check(name, t, shape, device):
@@ -287,28 +293,33 @@ def lm_solve_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
     global launches
     from ...kernels import check_launch, load_library
 
-    check_kernel_scope('lm_solve_cuda', dof, bounds, with_jtj)
+    check_kernel_scope('lm_solve_cuda', dof, bounds, with_jtj, fast_mode)
     b, n, _ = x3d.shape
     device = x3d.device
     if device.type != 'cuda':
         raise ValueError(f'lm_solve_cuda needs CUDA tensors, got {device}')
+    pose_dim = 4 if dof == 4 else 7
     for name, t, shape in (('x3d', x3d, (b, n, 3)), ('x2d', x2d, (b, n, 2)),
                            ('w2d', w2d, (b, n, 2)),
                            ('cam_fxfycxcy', cam_fxfycxcy, (b, 4)),
                            ('delta', delta, (b,)),
-                           ('pose_init', pose_init, (b, 7))):
+                           ('pose_init', pose_init, (b, pose_dim))):
         _check(name, t, shape, device)
+    if bounds is not None:
+        _check('bounds', bounds, (b, 4), device)
     lib = load_library()
-    pose = torch.empty((b, 7), dtype=torch.float32, device=device)
+    pose = torch.empty((b, pose_dim), dtype=torch.float32, device=device)
     cost = torch.empty((b,), dtype=torch.float32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.epropnp_lm_solve(
             ptr(x3d), ptr(x2d), ptr(w2d), ptr(cam_fxfycxcy), ptr(delta),
-            ptr(pose_init), ptr(pose), ptr(cost), b, n, int(fast_mode),
-            num_iter, z_min, eps, min_lm_diagonal, max_lm_diagonal,
-            min_relative_decrease, initial_trust_region_radius,
+            ptr(bounds), ptr(pose_init), ptr(pose), ptr(cost), b, n, dof,
+            int(fast_mode), num_iter, z_min, eps, min_lm_diagonal,
+            max_lm_diagonal, min_relative_decrease,
+            initial_trust_region_radius,
             max_trust_region_radius, ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_lm_solve')
     launches += 1

@@ -29,8 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .lm_kernel import (
-    _check, _evaluate, _lm_trust_region_step, check_kernel_scope)
+from .lm_kernel import _check, _evaluate, _lm_trust_region_step
 
 # Launches of the CUDA kernel, counted by :func:`rslm_init_cuda` alone.
 launches = 0
@@ -207,7 +206,10 @@ def rslm_init_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
     global launches
     from ...kernels import check_launch, load_library
 
-    check_kernel_scope('rslm_init_cuda', dof, bounds)
+    if dof != 6 or bounds is not None:
+        raise NotImplementedError(
+            'rslm_init_cuda: the CUDA kernel runs dof 6 without bounds; got '
+            f'dof={dof}, bounds={bounds is not None}')
     b, n, _ = x3d.shape
     device = x3d.device
     if device.type != 'cuda':

@@ -1,11 +1,12 @@
-"""JAX-package CDPN parameters -> the port's ``state_dict``.
+"""JAX-package parameters -> the port's ``state_dict``.
 
-``cdpn_state_dict`` is the exact inverse of
-``epropnp_tpu/utils/torch_convert.py::cdpn_variables``: it takes the flax
-variables of ``epropnp_tpu.models.cdpn.CDPN`` as nested dicts of numpy
-arrays (``{'params': ..., 'batch_stats': ...}``) and returns the state
-dict of :class:`epropnp_tpu_torch.models.cdpn.CDPN`, whose keys are the
-reference checkpoint's. Layout rules (the converter's, reversed):
+``cdpn_state_dict`` and ``det_state_dict`` are the exact inverses of
+``epropnp_tpu/utils/torch_convert.py::cdpn_variables`` and
+``::det_model_variables``: they take the flax variables of the JAX models
+as nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``)
+and return the state dicts of the port's ``CDPN`` and ``EProPnPDet``,
+whose keys are the reference checkpoints'. Layout rules (the converter's,
+reversed):
 
 - Conv kernel (kH, kW, I, O)          -> Conv2d weight (O, I, kH, kW)
 - ConvTranspose kernel (kH, kW, I, O) -> ConvTranspose2d weight
@@ -14,6 +15,12 @@ reference checkpoint's. Layout rules (the converter's, reversed):
   head's first Dense has its rows permuted from the NHWC flatten (H, W, C)
   to the NCHW flatten (C, H, W)
 - BatchNorm scale/bias, mean/var      -> weight/bias, running_mean/var
+- GroupNorm/LayerNorm scale/bias      -> weight/bias
+- DeformConv kernel (9 I, O), tap-major -> weight (O, I, 3, 3); its
+  conv_offset's (dx, dy) output pairs swapped back to mmcv's (dy, dx);
+  the flax bias is dropped where mmcv's DCN has none (it must be zero)
+- the q/k/v Dense layers of a point transformer -> one packed
+  ``in_proj_weight`` (3E, E) with rows [q; k; v]
 
 Pure numpy until the final conversion to tensors.
 """
@@ -49,7 +56,10 @@ def _bn(out: Dict, name: str, params: Dict, stats: Dict) -> None:
     out[f'{name}.num_batches_tracked'] = np.zeros((), np.int64)
 
 
-def _backbone(out: Dict, params: Dict, stats: Dict, depth: int) -> None:
+def _backbone(out: Dict, params: Dict, stats: Dict, depth: int,
+              dcn_stages=()) -> None:
+    """ResNet convs and BatchNorms; the 3x3 convs of ``dcn_stages`` are
+    left to the caller (flax numbers those blocks' convs Conv_0, Conv_1)."""
     block_name, stage_sizes, _ = resnet_spec[depth]
     out['backbone.conv1.weight'] = conv_weight(params['conv1']['kernel'])
     _bn(out, 'backbone.bn1', params['bn1'], stats['bn1'])
@@ -59,9 +69,11 @@ def _backbone(out: Dict, params: Dict, stats: Dict, depth: int) -> None:
             t = f'backbone.layer{stage}.{i}'
             bp = params[f'layer{stage}_block{i}']
             bs = stats[f'layer{stage}_block{i}']
+            convs = {1: 'Conv_0', 3: 'Conv_1'} if stage in dcn_stages else {
+                j + 1: f'Conv_{j}' for j in range(n_convs)}
+            for j, name in convs.items():
+                out[f'{t}.conv{j}.weight'] = conv_weight(bp[name]['kernel'])
             for j in range(n_convs):
-                out[f'{t}.conv{j + 1}.weight'] = conv_weight(
-                    bp[f'Conv_{j}']['kernel'])
                 _bn(out, f'{t}.bn{j + 1}', bp[f'BatchNorm_{j}'],
                     bs[f'BatchNorm_{j}'])
             if 'downsample_conv' in bp:
@@ -131,3 +143,154 @@ def cdpn_state_dict(variables: Dict, depth: int = 34,
                 feat_hw=feat_hw)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+# ------------------------------------------------------------------ Det
+
+_DCN_PAIR_SWAP = [2 * i + (1 - j) for i in range(9) for j in range(2)] \
+    + list(range(18, 27))  # (dx, dy) <-> (dy, dx) per tap; an involution
+
+
+def _conv(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = conv_weight(p['kernel'])
+    if 'bias' in p:
+        out[f'{name}.bias'] = p['bias']
+
+
+def _linear(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = linear_weight(p['kernel'])
+    out[f'{name}.bias'] = p['bias']
+
+
+def _norm(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = p['scale']
+    out[f'{name}.bias'] = p['bias']
+
+
+def _deform_conv(out: Dict, name: str, p: Dict, bias: bool) -> None:
+    kernel = p['kernel']
+    c_in, c_out = kernel.shape[0] // 9, kernel.shape[1]
+    out[f'{name}.weight'] = conv_weight(kernel.reshape(3, 3, c_in, c_out))
+    if bias:
+        out[f'{name}.bias'] = p['bias']
+    elif np.any(p['bias']):
+        raise ValueError(f'{name}: mmcv has no bias here, but the flax '
+                         'DeformConv bias is non-zero')
+    out[f'{name}.conv_offset.weight'] = conv_weight(
+        p['conv_offset']['kernel'])[_DCN_PAIR_SWAP]
+    out[f'{name}.conv_offset.bias'] = p['conv_offset']['bias'][_DCN_PAIR_SWAP]
+
+
+def _det_backbone(out: Dict, params: Dict, stats: Dict,
+                  depth: int) -> None:
+    """ResNet(-DCN): a stage is deformable where its blocks hold a
+    ``DeformConv_0`` (stages 3 and 4 of every released config)."""
+    _, stage_sizes, _ = resnet_spec[depth]
+    dcn_stages = tuple(s for s in range(1, 5)
+                       if 'DeformConv_0' in params[f'layer{s}_block0'])
+    _backbone(out, params, stats, depth, dcn_stages)
+    for stage in dcn_stages:
+        for i in range(stage_sizes[stage - 1]):
+            _deform_conv(out, f'backbone.layer{stage}.{i}.conv2',
+                         params[f'layer{stage}_block{i}']['DeformConv_0'],
+                         bias=False)
+
+
+def _fcos_head(out: Dict, params: Dict, p: str) -> None:
+    for tower, ours in (('cls_convs', 'cls'), ('reg_convs', 'reg')):
+        i = 0
+        while f'{ours}_gn{i}' in params:
+            t = f'{p}{tower}.{i}'
+            if f'{ours}_dcn{i}' in params:
+                _deform_conv(out, f'{t}.conv', params[f'{ours}_dcn{i}'],
+                             bias=False)
+            else:
+                _conv(out, f'{t}.conv', params[f'{ours}_conv{i}'])
+            _norm(out, f'{t}.gn', params[f'{ours}_gn{i}'])
+            i += 1
+    for torch_br, ours in (('conv_cls_prev', 'cls_br'),
+                           ('conv_centerness_prev', 'ctr_br'),
+                           ('conv_offset_prev', 'off_br'),
+                           ('conv_emb_prev', 'emb_br')):
+        j = 0
+        while f'{ours}_conv{j}' in params:
+            _conv(out, f'{p}{torch_br}.{j}.conv', params[f'{ours}_conv{j}'])
+            _norm(out, f'{p}{torch_br}.{j}.gn', params[f'{ours}_gn{j}'])
+            j += 1
+    for name in ('conv_cls', 'conv_centerness', 'conv_offset'):
+        _conv(out, f'{p}{name}', params[name])
+    _conv(out, f'{p}conv_emb.conv', params['conv_emb'])
+    _norm(out, f'{p}conv_emb.gn', params['conv_emb_gn'])
+
+
+def _det_head(out: Dict, params: Dict, p: str = 'bbox_head.') -> None:
+    _fcos_head(out, params['detector'], f'{p}detector.')
+    sampler = params['attention_sampler']
+    s = f'{p}attention_sampler.'
+    _linear(out, f'{s}sampling_offsets', sampler['sampling_offsets'])
+    _linear(out, f'{s}out_proj', sampler['out_proj'])
+    _norm(out, f'{s}layer_norms.0', sampler['norm1'])
+    _linear(out, f'{s}ffn.layers.0.0', sampler['ffn1'])
+    _linear(out, f'{s}ffn.layers.1', sampler['ffn2'])
+    _norm(out, f'{s}layer_norms.1', sampler['norm2'])
+    _conv(out, f'{p}conv_upsampled.conv', params['conv_upsampled'])
+    _norm(out, f'{p}conv_upsampled.gn', params['conv_upsampled_gn'])
+    for name in ('k_proj', 'v_proj'):
+        _conv(out, f'{p}{name}', params[name])
+    out[f'{p}query_scale.scale'] = np.asarray(params['query_scale'])
+    for name in ('query_proj', 'dim_branch', 'score_branch', 'scale_branch',
+                 'x2d_pos_enc', 'velo_branch', 'attr_branch'):
+        if name in params:
+            _linear(out, f'{p}{name}', params[name])
+    if 'cls_emb' in params:
+        out[f'{p}cls_emb'] = params['cls_emb']
+    i = 0
+    while f'dense_conv{i}' in params:
+        _conv(out, f'{p}convs.{i}.conv', params[f'dense_conv{i}'])
+        i += 1
+    i = 0
+    while f'pred_fc{i}' in params:
+        _linear(out, f'{p}pred_fc.{2 * i}', params[f'pred_fc{i}'])
+        i += 1
+    i = 0
+    while f'pts_trans{i}' in params:
+        tr, t = params[f'pts_trans{i}'], f'{p}pts_trans.{i}.'
+        out[f'{p}obj_query_scale.{i}.scale'] = np.asarray(
+            params[f'obj_query_scale{i}'])
+        qkv = ('q_proj', 'k_proj', 'v_proj')
+        out[f'{t}attentions.0.attn.in_proj_weight'] = np.concatenate(
+            [linear_weight(tr[n]['kernel']) for n in qkv], 0)
+        out[f'{t}attentions.0.attn.in_proj_bias'] = np.concatenate(
+            [tr[n]['bias'] for n in qkv], 0)
+        _linear(out, f'{t}attentions.0.attn.out_proj', tr['out_proj'])
+        _norm(out, f'{t}norms.0', tr['norm1'])
+        _linear(out, f'{t}ffns.0.layers.0.0', tr['ffn1'])
+        _linear(out, f'{t}ffns.0.layers.1', tr['ffn2'])
+        _norm(out, f'{t}norms.1', tr['norm2'])
+        i += 1
+    i = 0
+    while f'corr_reg{i}' in params:
+        out[f'{p}corr_regs.{i}.weight'] = params[f'corr_reg{i}']['weight']
+        out[f'{p}corr_regs.{i}.bias'] = params[f'corr_reg{i}']['bias']
+        i += 1
+
+
+def det_state_dict(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """flax EProPnPDet variables (numpy) -> port ``EProPnPDet`` state dict.
+
+    ``cfg`` is a ``det.config.DetConfig`` (its depth and strides).
+    """
+    params, stats = variables['params'], variables['batch_stats']
+    out: Dict[str, np.ndarray] = {}
+    _det_backbone(out, params['backbone'], stats['backbone'],
+                  cfg.backbone_depth)
+    neck = params['neck']
+    n_lat = sum(k.startswith('lateral_') for k in neck)
+    for i in range(n_lat):
+        _conv(out, f'neck.lateral_convs.{i}.conv', neck[f'lateral_{i}'])
+        _conv(out, f'neck.fpn_convs.{i}.conv', neck[f'fpn_conv_{i}'])
+    for j in range(len(cfg.strides) - n_lat):
+        _conv(out, f'neck.fpn_convs.{n_lat + j}.conv',
+              neck[f'extra_conv_{j}'])
+    _det_head(out, params['head'])
+    return {k: torch.tensor(np.asarray(v)) for k, v in out.items()}

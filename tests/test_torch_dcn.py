@@ -1,0 +1,143 @@
+"""The port's deformable convolution (K3's twin) against the JAX package.
+
+The same numpy inputs (``np.random.default_rng``) go through the flax
+``DeformConv`` (the jnp path, and the Pallas contraction in interpret
+mode) and through the port's ``DeformConv``, whose weights come from the
+flax variables by the ``det_state_dict`` rules (mmcv layout, offset pairs
+swapped). float32 on both sides; the tolerances are the JAX DCN tests'
+forward ones, rtol 1e-4 / atol 1e-5 (``tests/test_pallas_dcn.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import epropnp_tpu.ops.pallas_dcn as pallas_dcn
+from epropnp_tpu.models.backbones.resnet import Bottleneck as FlaxBottleneck
+from epropnp_tpu.ops.deform_conv import DeformConv as FlaxDeformConv
+from epropnp_tpu_torch.models.backbones.resnet import Bottleneck
+from epropnp_tpu_torch.ops import dcn_kernel
+from epropnp_tpu_torch.ops.deform_conv import DeformConv
+from epropnp_tpu_torch.utils import convert
+
+torch.set_num_threads(1)
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _randomize(variables, seed, scale=0.2):
+    """Seeded normal leaves (f32): offsets of a few pixels, some reaching
+    outside the map. BatchNorm variances stay positive."""
+    r = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = str(path[-1].key)
+        if name == 'var':
+            return r.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return r.normal(scale=scale, size=x.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _port_deform_conv(p, c_in, c_out, stride, bias=True):
+    """A port DeformConv holding the flax DeformConv params ``p``."""
+    sd = {}
+    convert._deform_conv(sd, 'm', p, bias=bias)
+    mod = DeformConv(c_in, c_out, stride, bias=bias)
+    mod.load_state_dict({k[2:]: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in sd.items()}, strict=True)
+    return mod
+
+
+@pytest.mark.parametrize('stride,h,w,c,cout', [
+    (1, 10, 14, 32, 24), (2, 10, 14, 32, 24), (1, 5, 13, 8, 8),
+    (2, 7, 9, 16, 12)])
+def test_deform_conv_matches_flax(stride, h, w, c, cout):
+    x = np.random.default_rng(h * w + stride).normal(
+        size=(2, h, w, c)).astype(np.float32)
+    m = FlaxDeformConv(cout, strides=stride, fused=False)
+    vs = _randomize(m.init(jax.random.PRNGKey(0), jnp.asarray(x)), stride)
+    ref = np.asarray(m.apply(vs, jnp.asarray(x)))
+    mod = _port_deform_conv(vs['params'], c, cout, stride)
+    before = dcn_kernel.launches
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x)).numpy()
+    assert dcn_kernel.launches == before  # the twin runs on the CPU
+    # the offsets reach outside the map (zero-padded corners exercised)
+    om = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(x), vs['params']['conv_offset']['kernel'],
+        (stride, stride), ((1, 1), (1, 1)),
+        dimension_numbers=('NHWC', 'HWIO', 'NHWC')))
+    assert np.abs(om[..., :18]).max() > 2.0
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_deform_conv_matches_pallas_contraction(stride, monkeypatch):
+    """Against the fused path: the Pallas ``_contract_pallas`` kernel that
+    K3 replaces, in interpret mode."""
+    monkeypatch.setattr(pallas_dcn, 'INTERPRET', True)
+    x = np.random.default_rng(7).normal(size=(1, 5, 13, 16)).astype(
+        np.float32)  # h * w = 65: a ragged L block
+    m = FlaxDeformConv(8, strides=stride, fused=True)
+    vs = _randomize(m.init(jax.random.PRNGKey(0), jnp.asarray(x)), 3)
+    ref = np.asarray(m.apply(vs, jnp.asarray(x)))
+    mod = _port_deform_conv(vs['params'], 16, 8, stride)
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_dcn_bottleneck_stride2_matches_flax():
+    """The strided first block of a DCN stage (eval-mode BatchNorm)."""
+    x = np.random.default_rng(11).normal(size=(2, 9, 11, 32)).astype(
+        np.float32)
+    m = FlaxBottleneck(16, strides=2, use_dcn=True)
+    vs = m.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    vs = _randomize(vs, 12, scale=0.1)
+    p = vs['params']
+    p['DeformConv_0']['bias'] = np.zeros_like(p['DeformConv_0']['bias'])
+    ref = np.asarray(m.apply(vs, jnp.asarray(x), train=False))
+
+    sd = {}
+    convert._deform_conv(sd, 'conv2', p['DeformConv_0'], bias=False)
+    for j, name in ((1, 'Conv_0'), (3, 'Conv_1')):
+        sd[f'conv{j}.weight'] = convert.conv_weight(p[name]['kernel'])
+    for j in range(3):
+        convert._bn(sd, f'bn{j + 1}', p[f'BatchNorm_{j}'],
+                    vs['batch_stats'][f'BatchNorm_{j}'])
+    sd['downsample.0.weight'] = convert.conv_weight(
+        p['downsample_conv']['kernel'])
+    convert._bn(sd, 'downsample.1', p['BatchNorm_3'],
+                vs['batch_stats']['BatchNorm_3'])
+    block = Bottleneck(32, 16, stride=2, use_dcn=True).eval()
+    block.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        out = block(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).numpy()
+    assert out.shape == ref.shape == (2, 5, 6, 64)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_dcn_wrapper_refuses_what_it_does_not_run():
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.normal(size=(1, 6, 6, 16)).astype(np.float32))
+    om = torch.zeros(1, 6, 6, 27)
+    weight = torch.from_numpy(r.normal(size=(16, 16, 3, 3)).astype(
+        np.float32))
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        dcn_kernel.dcn_forward_cuda(x, om, dcn_kernel.kernel_weight(weight))
+    with pytest.raises(ValueError, match='unsupported device'):
+        with torch.no_grad():
+            dcn_kernel.dcn_forward(x.to('meta'), om.to('meta'),
+                                   weight.to('meta'))
+    with pytest.raises(NotImplementedError, match='forward only'):
+        dcn_kernel.dcn_forward(x, om, weight.requires_grad_())
+    with torch.no_grad():  # the twin: zero offsets, mask 0 -> mod = 1
+        out = dcn_kernel.dcn_forward(x, om, weight, modulation_scale=2.0)
+    plain = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight,
+                                       padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.numpy(), plain.detach().numpy(),
+                               rtol=RTOL, atol=ATOL)

@@ -241,11 +241,14 @@ def test_wrappers_refuse_what_they_do_not_run():
         lm_kernel.lm_solve(*meta)
 
 
-@pytest.mark.parametrize('option', [dict(dof=4), dict(bounds=True),
+@pytest.mark.parametrize('option', [dict(dof=4, fast_mode=False),
+                                    dict(bounds=True, fast_mode=False),
                                     dict(with_jtj=True)])
 def test_lm_kernel_refuses_options_not_ported(option):
-    """The CUDA kernel runs dof 6 without bounds or JtJ; its wrapper raises
-    on the rest before it looks at the device (the twin takes them all)."""
+    """The CUDA kernel runs fast mode at dof 6 or 4 with or without bounds,
+    and the trust region at dof 6 without bounds; its wrapper raises on
+    JtJ and on dof 4 or bounds in trust-region mode before it looks at the
+    device (the twin takes them all)."""
     p = make_problem(5, b=4, n=8, dof=option.get('dof', 6))
     _, t = both(p, np.float32)
     kw = dict(option)
@@ -254,16 +257,45 @@ def test_lm_kernel_refuses_options_not_ported(option):
     args = (t['x3d'], t['x2d'], t['w2d'],
             lm_kernel.camera_to_fxfycxcy(t['cams']).contiguous(),
             torch.ones(4), t['pose0'])
-    with pytest.raises(NotImplementedError, match='dof 6 without bounds'):
+    with pytest.raises(NotImplementedError, match='never JtJ'):
         lm_kernel.lm_solve_cuda(*args, **kw)
     out = lm_kernel.lm_solve(*args, **kw)  # CPU: the twin runs them
     assert all(torch.isfinite(o).all() for o in out)
 
 
+def test_lm_kernel_takes_dof4_with_bounds_in_fast_mode():
+    """The Det serving options are in the kernel's scope: the CUDA wrapper
+    gets past its scope check (and refuses the CPU tensor), and the CPU
+    wrapper runs the twin, which matches the plain fast solver."""
+    p = make_problem(6, b=4, n=16, dof=4)
+    _, t = both(p, np.float32)
+    lb, ub = tight_bounds(p['x2d'])
+    bounds = torch.from_numpy(np.concatenate([lb, ub], -1).astype(np.float32))
+    args = (t['x3d'], t['x2d'], t['w2d'],
+            lm_kernel.camera_to_fxfycxcy(t['cams']).contiguous(),
+            torch.full((4,), 0.7), t['pose0'])
+    kw = dict(bounds=bounds, dof=4, num_iter=3, fast_mode=True)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        lm_kernel.lm_solve_cuda(*args, **kw)
+    pose, cost = lm_kernel.lm_solve(*args, **kw)
+    assert pose.shape == (4, 4) and torch.isfinite(pose).all()
+    tcam = tpnp.PerspectiveCamera(cam_mats=t['cams'], lb=bounds[:, :2],
+                                  ub=bounds[:, 2:], z_min=0.1)
+    ref, _, ref_cost = tpnp.LMSolver(dof=4, num_iter=3).solve(
+        t['x3d'], t['x2d'], t['w2d'], tcam,
+        tpnp.HuberPnPCost(delta=torch.full((4,), 0.7)),
+        pose_init=t['pose0'], with_cost=True, fast_mode=True)
+    # f32, the same three Gauss-Newton steps written two ways
+    close(pose, ref, rtol=1e-4, atol=1e-4)
+    close(cost, ref_cost, rtol=1e-4, atol=1e-6)
+
+
 def test_port_never_loads_jax():
     code = ('import sys, epropnp_tpu_torch, epropnp_tpu_torch.sixdof.test, '
             'epropnp_tpu_torch.utils.convert, '
-            'epropnp_tpu_torch.ops.pnp.rslm_kernel; '
+            'epropnp_tpu_torch.ops.pnp.rslm_kernel, '
+            'epropnp_tpu_torch.det.api, epropnp_tpu_torch.det.test, '
+            'epropnp_tpu_torch.ops.dcn_kernel; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
