@@ -6,7 +6,7 @@ with one CUDA card (an H100: the kernels are built for ``sm_90a``).
 It builds the hand-written kernels from ``epropnp_tpu_torch/csrc`` with
 ``nvcc`` (K1 fused LM solve, K2 fused RSLM init, K3 DCNv2 sampling
 contraction; one compiler per source, all started together) and runs
-seven phases; any failure exits non-zero:
+these phases; any failure exits non-zero:
 
 a. K1 (fused LM solve) against its torch twin on the card, at the shapes
    of the main path: (2048, 16) and (32, 4096) in fast Gauss-Newton mode,
@@ -15,16 +15,26 @@ b. K2 (fused RSLM init) against its twin at B=1024, N=512: per object
    (the twin replays the kernel's Philox stream), by distribution (median
    init cost within 2x of the twin's) and by the cost consistency of the
    returned pose.
+b+. K2 through the legacy layout's entry (``rslm_init`` at N=96 with 16
+   points and N=384 with 24: full-set scoring) at dof 6 and 4, B=1024:
+   per object against the twin (at dof 4, where the f32 twin misses its
+   own f64 run for 1-2% of the objects, against the f64 twin as often as
+   the f32 twin meets it), cost consistency, and the init beating the
+   ground truth shifted by 1 m.
 c. Serving: a full-width CDPN-34 on seeded random weights answers 3
    requests of 32 crops at 256x256 through ``sixdof.test.infer_poses``
    (``init='rslm'``, fused kernels on); each request must launch K1 twice
    (the proposals' solve and the refine).
-d. The bench problem (``bench.make_problem``: 6DoF, B=1024, N=512, RSLM
-   init with 64 proposals, then 10 trust-region LM iterations) through
-   ``LMSolver``, kernel path against twin path.
+d. The bench problem (``utils.synthetic.make_problem``, a copy of
+   ``bench.make_problem``: 6DoF, B=1024, N=512, RSLM init with 64
+   proposals, then 10 trust-region LM iterations) through ``LMSolver``,
+   kernel path against twin path.
 e. K3 against its twin (and an f64 twin) at the Det serving shapes
    (672x1600 x 6 images): a backbone stage-3 layer at stride 1 and its
    stride-2 first block, a stage-4 layer, FCOS level 0.
+e+. K3's int8 variant (bf16 weight) and bf16 variant at the v1b_serving
+   shapes: the stage-3 layer, the stride-2 first block and stage 4, and
+   the int8 variant on the packed FCOS canvas (5 levels, one launch).
 f. K1 at dof 4 with projection bounds in fast mode (the Det solve) against
    its twin (and an f64 twin) at (98304, 16) x 3 and (1536, 128) x 5.
 g. Det serving: EPro-PnP-Det v1b (ResNet-101-DCN, FPN, FCOSEmbHead,
@@ -33,9 +43,17 @@ g. Det serving: EPro-PnP-Det v1b (ResNet-101-DCN, FPN, FCOSEmbHead,
    ``det.api.inference_detector``; each request must launch K3 36 times and
    K1 twice. A 320x800 image runs through the card and through the twins
    on the CPU with the same random draws.
+h. Det serving at ``DetConfig.v1b_serving()`` (bf16 backbone and dense
+   stage, level-packed towers, int8 DCN sampling) on phase g's weights: 3
+   requests of 6 frames, each launching K3-int8 28 times (26 backbone
+   DCNs, 2 packed tower DCNs) and K1 twice, a profile by kind, and a
+   320x800 card-against-CPU check of the dense outputs; then one request
+   with the bf16 DCN sampling (``int8_dcn_gather`` off), 28 K3-bf16
+   launches.
 
-Every launch counter is set to 0 before phases c, d and g (the main path)
-and read after them. Earlier lines print each phase's numbers, the card's
+Every launch counter is set to 0 just before each path that a user's
+call drives (b+'s entry calls, c, d, g, h and h's bf16 request) and read
+just after it. Earlier lines print each phase's numbers, the card's
 ``nvidia-smi`` name and power limit, and one JSON object with a row per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -70,9 +88,22 @@ K2_MEDIAN_RATIO, K2_CONSIST_RTOL = 2.0, 1e-3
 # K3: max|kernel - twin| <= 1e-4 * max|twin| (f32 sums of 2304-4608 terms
 # in another order; the f64 twin's distance to both is printed beside it).
 K3_REL = 1e-4
+# K3's bf16 and int8 variants against the twin in the same variant:
+# max|k - t| <= 8e-3 max|t| (about two bf16 ulps of the largest entry: the
+# combined corner value is rounded to bf16 on both sides and a sum in
+# another order may round it the other way). The int8 twin against the
+# f32 twin: the JAX budget is 1e-2 max|t| (tests/test_int8_dcn.py:55-57),
+# set on maps of 240-1564 samples a channel. The quantizer's step is
+# amax / 127 per channel, and on these maps (25k-135k samples a channel)
+# the amax stands further out from the bulk of the values: the same
+# quantizer (bit-exact with quantize_packed_table) gives 1.05-1.32% of
+# max|t| here (H100, PERF.md), so the rule is 1.5e-2 and the ratio is
+# printed beside the JAX budget.
+K3_VARIANT_REL, K3_INT8_JAX_BUDGET, K3_INT8_BUDGET = 8e-3, 1e-2, 1.5e-2
 # Peak rates of one H100 SXM (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3.
+# cores, bf16 on the tensor cores, and HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PEAK_BF16_FLOPS = 989e12
 # f32 operations of one point evaluation in K1/K2 (projection, Huber cost
 # and IRLS rescale, Jacobian, JtJ + gradient sums; an FMA counts 2),
 # counted from accumulate_point in csrc/pnp_common.cuh; the scoring cost
@@ -83,6 +114,12 @@ K2_SCORE_FLOPS = 40
 # build_det_model) and the card-against-CPU rule of the dense outputs,
 # max|card - cpu| <= 1e-4 * max|cpu| per output (f32 on both sides).
 RESIDUAL_SCALE, DET_DENSE_REL = 0.3, 1e-4
+# v1b_serving: card against CPU (both bf16 + int8) at most this many times
+# the CPU's own bf16-serving-against-f32 spread, measured in the same run.
+SERVING_SPREAD_FACTOR = 2.0
+# DCNs per v1b_serving request: 26 backbone (stages 3-4 of ResNet-101)
+# and one per FCOS tower on the packed canvas.
+SERVING_K3_LAUNCHES = 28
 # nuScenes CAM_FRONT-like intrinsics of a 1600x900 frame
 NUSCENES_K = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]]
 LINEMOD_K = [[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
@@ -125,11 +162,12 @@ def time_ms(torch, fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     """The least time for the work on one H100 (ms) and what bounds it:
-    operations at the f32 peak or bytes (each input read once, each output
-    written once) at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    operations at ``peak_flops`` (the f32 peak unless given) or bytes
+    (each input read once, each output written once) at the memory
+    rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -145,6 +183,7 @@ def k1_bound(b, n, dof, evals):
 def profile_once(torch, fn, label, top=6):
     """Profile one call of ``fn`` with ``torch.profiler``: print the wall
     time, the summed device time of its kernels and the top kernels.
+    Returns ``([(kernel name, device ms, count), ...], wall ms)``.
 
     An error of ``fn`` (a failed launch) propagates; only the reading of
     the trace, which is instrumentation, reports a failure instead.
@@ -169,19 +208,44 @@ def profile_once(torch, fn, label, top=6):
         busy_us = sum(dev(e) for e in kernels)
     except Exception as err:  # noqa: BLE001 - reading the trace only
         print(f'profile {label}: unreadable ({type(err).__name__}: {err})')
-        return []
+        return [], wall * 1e3
     print(f'profile {label}: wall {wall * 1e3:.3f} ms, device busy '
           f'{busy_us / 1e3:.3f} ms ({len(kernels)} kernel names)')
     for e in kernels[:top]:
         print(f'profile {label}:   {dev(e) / 1e3:9.3f} ms  x{e.count:<5d} '
               f'{e.key[:90]}')
-    return [(e.key, dev(e) / 1e3, e.count) for e in kernels]
+    return [(e.key, dev(e) / 1e3, e.count) for e in kernels], wall * 1e3
 
 
 def agree(a, b, rtol, floor):
     """Per-row: every entry within rtol * (|b| + floor)."""
     ok = np.abs(a - b) <= rtol * (np.abs(b) + floor)
     return ok.reshape(ok.shape[0], -1).all(-1)
+
+
+def kernel_counters():
+    """Each kernel's launch counter: (module, attribute)."""
+    from epropnp_tpu_torch.ops import dcn_kernel
+    from epropnp_tpu_torch.ops.pnp import lm_kernel, rslm_kernel
+    return {'K1': (lm_kernel, 'launches'), 'K2': (rslm_kernel, 'launches'),
+            'K2-legacy': (rslm_kernel, 'launches_legacy'),
+            'K3-f32': (dcn_kernel, 'launches'),
+            'K3-bf16': (dcn_kernel, 'launches_bf16'),
+            'K3-int8': (dcn_kernel, 'launches_int8')}
+
+
+def launch_counts():
+    return {k: getattr(m, a) for k, (m, a) in kernel_counters().items()}
+
+
+def drive(torch, fn):
+    """Run one path of the main run with every launch counter set to 0
+    just before it; returns the counts read just after it."""
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+    fn()
+    torch.cuda.synchronize()
+    return launch_counts()
 
 
 def phase_a(torch, device):
@@ -231,13 +295,13 @@ def phase_a(torch, device):
 
 def phase_b(torch, device):
     """K2 against its twin at B=1024, N=512."""
-    import bench
     from epropnp_tpu_torch.ops.pnp import HuberPnPCost, PerspectiveCamera
     from epropnp_tpu_torch.ops.pnp import evaluate_pnp
     from epropnp_tpu_torch.ops.pnp import rslm_kernel as k2
     from epropnp_tpu_torch.ops.pnp.lm_kernel import camera_to_fxfycxcy
+    from epropnp_tpu_torch.utils.synthetic import make_problem
     x3d, x2d, w2d, cam, _ = (torch.from_numpy(np.ascontiguousarray(a)).to(
-        device) for a in bench.make_problem(seed=1))
+        device) for a in make_problem(seed=1))
     b, n = x3d.shape[:2]
     cam4 = camera_to_fxfycxcy(cam).contiguous()
     delta = torch.full((b,), 10.0 / n, device=device)
@@ -281,6 +345,112 @@ def phase_b(torch, device):
                 replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:817',
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
+
+
+LEGACY_CASES = [  # (N, num_points, dof): 128 % 24 != 0, N % 128 != 0
+    (96, 16, 6), (96, 16, 4), (384, 24, 6), (384, 24, 4)]
+
+
+def legacy_problem(torch, device, b, n, dof, seed):
+    """A dof-6 or dof-4 problem at the legacy layout's shapes: f32 tensors
+    x3d, x2d, w2d, cam4, delta, seeds, the cameras and the GT pose."""
+    from epropnp_tpu_torch.ops.pnp.lm_kernel import camera_to_fxfycxcy
+    from epropnp_tpu_torch.utils.synthetic import make_pnp_problem
+    p = make_pnp_problem(b, n, seed, dof=dof)
+    t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+         for k, v in p.items()}
+    seeds = torch.randint(0, 2 ** 31 - 1, (b,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(seed)
+                          ).to(device)
+    return (t['x3d'], t['x2d'], t['w2d'],
+            camera_to_fxfycxcy(t['cams']).contiguous(),
+            torch.full((b,), 10.0 / n, device=device), seeds, t['cams'],
+            t['pose'])
+
+
+def legacy_kw(num_points, dof):
+    return dict(dof=dof, num_points=num_points, num_proposals=64,
+                num_iter=3, z_min=0.1, score_points=128)
+
+
+def path_legacy_entry(torch, device, b=1024):
+    """The legacy layout's entry as a caller drives it: ``rslm_init`` on
+    CUDA tensors at each legacy case."""
+    from epropnp_tpu_torch.ops.pnp import rslm_kernel
+    for i, (n, k, dof) in enumerate(LEGACY_CASES):
+        args = legacy_problem(torch, device, b, n, dof, 80 + i)[:6]
+        rslm_kernel.rslm_init(*args, **legacy_kw(k, dof))
+    torch.cuda.synchronize()
+
+
+def phase_b_legacy(torch, device, b=1024):
+    """K2 through the legacy layout (full-set scoring) at dof 6 and 4."""
+    from epropnp_tpu_torch.ops.pnp import HuberPnPCost, PerspectiveCamera
+    from epropnp_tpu_torch.ops.pnp import evaluate_pnp
+    from epropnp_tpu_torch.ops.pnp import rslm_kernel as k2
+    rows = []
+    for i, (n, k, dof) in enumerate(LEGACY_CASES):
+        x3d, x2d, w2d, cam4, delta, seeds, cams, pose_gt = legacy_problem(
+            torch, device, b, n, dof, 80 + i)
+        args, kw = (x3d, x2d, w2d, cam4, delta, seeds), legacy_kw(k, dof)
+        assert not k2.packed_layout(n, k)
+        run_k = lambda: k2.rslm_init_cuda(*args, **kw)  # noqa: E731
+        run_t = lambda: k2.rslm_init_reference(*args, **kw)  # noqa: E731
+        pk, ck = run_k()
+        pt, ct = run_t()
+        _, c64 = k2.rslm_init_reference(*(a.double() for a in args[:5]),
+                                        seeds, **kw)
+        camera = PerspectiveCamera(cam_mats=cams, z_min=0.1)
+        cost_fun = HuberPnPCost(delta=delta)
+        ev = evaluate_pnp(x3d, x2d, w2d, pk, camera, cost_fun,
+                          out_cost=True).cost
+        bad = pose_gt.clone()
+        bad[:, 0] += 1.0
+        ev_bad = evaluate_pnp(x3d, x2d, w2d, bad, camera, cost_fun,
+                              out_cost=True).cost
+        torch.cuda.synchronize()
+        ck_n, ct_n, c64_n, ev_n, bad_n = (t.cpu().numpy()
+                                          for t in (ck, ct, c64, ev, ev_bad))
+        assert pk.shape == (b, 4 if dof == 4 else 7)
+        assert torch.isfinite(pk).all() and np.isfinite(ck_n).all(), \
+            'K2 legacy non-finite'
+        replay = agree(ck_n, ct_n, K1_RTOL, 0.0).mean()
+        # the kernel and the f32 twin against the f64 twin (same draws):
+        # at dof 4 the f32 twin itself misses the f64 cost for 1-2% of
+        # the objects, so there the kernel is held to the twin's spread
+        spread = agree(ct_n, c64_n, K1_RTOL, 0.0).mean()
+        kernel64 = agree(ck_n, c64_n, K1_RTOL, 0.0).mean()
+        consist = agree(ck_n, ev_n, K2_CONSIST_RTOL, 0.0).mean()
+        beats = float((ck_n < bad_n).mean())
+        err = float(np.abs(ck_n - ct_n).max())
+        ms = time_ms(torch, run_k, iters=10)
+        plain_ms = time_ms(torch, run_t, iters=3)
+        flops = b * kw['num_proposals'] * (
+            K1_POINT_FLOPS[dof] * k * (kw['num_iter'] + 1)
+            + K2_SCORE_FLOPS * n)
+        pose = 4 if dof == 4 else 7
+        bound, by = bound_ms(flops, b * (28 * n + 4 * (4 + 1 + 1 + pose
+                                                       + 1)))
+        row = dict(B=b, N=n, num_points=k, dof=dof, per_object_agree=float(
+            replay), twin_f32_vs_f64_cost_agree=float(spread),
+            kernel_vs_f64_cost_agree=float(kernel64),
+            consistency=float(consist), beats_gt_plus_1m=beats,
+            median_cost=float(np.median(ck_n)), max_abs_cost_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        print('phase b+: K2 legacy ' + json.dumps(row))
+        assert replay >= K1_MIN_FRAC or kernel64 >= spread - 0.005, \
+            'K2 legacy disagrees with its twin'
+        assert consist == 1.0, 'K2 legacy cost is not the full-set cost'
+        assert beats >= K1_MIN_FRAC, 'K2 legacy init worse than GT + 1 m'
+        rows.append(row)
+    main = max(rows, key=lambda r: r['N'] * (r['dof'] == 6))
+    return dict(name='rslm_init legacy layout (K2)', route='cuda',
+                source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
+                replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:931',
+                max_abs_err=max(r['max_abs_cost_err'] for r in rows),
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=None)
 
 
 def calibrate_batchnorm(torch, model, inp):
@@ -425,20 +595,20 @@ def bench_twin_solve(torch, x3d, x2d, w2d, cam, cost_fun, seeds, solver):
 
 
 def phase_d(torch, device):
-    import bench
     from epropnp_tpu_torch.ops.pnp import (
         AdaptiveHuberPnPCost, LMSolver, PerspectiveCamera, RSLMSolver,
         evaluate_pnp)
+    from epropnp_tpu_torch.utils import synthetic
     x3d, x2d, w2d, cam, pose_gt = (
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in bench.make_problem())
+        for a in synthetic.make_problem())
     b = x3d.shape[0]
     solver = LMSolver(
-        dof=6, num_iter=bench.LM_ITER, use_pallas=True,
-        init_solver=RSLMSolver(dof=6, num_points=bench.RS_POINTS,
-                               num_proposals=bench.RS_PROPOSALS,
-                               num_iter=bench.RS_ITER, use_pallas=True,
-                               fast_sampling=True))
+        dof=6, num_iter=synthetic.BENCH_LM_ITER, use_pallas=True,
+        init_solver=RSLMSolver(dof=6, num_points=synthetic.BENCH_RS_POINTS,
+                               num_proposals=synthetic.BENCH_RS_PROPOSALS,
+                               num_iter=synthetic.BENCH_RS_ITER,
+                               use_pallas=True, fast_sampling=True))
     camera = PerspectiveCamera(cam_mats=cam)
     cost_fun = AdaptiveHuberPnPCost(relative_delta=0.1).set_param(x2d, w2d)
     gen = torch.Generator(device=device)
@@ -478,13 +648,15 @@ def phase_d(torch, device):
     assert np.isfinite(ct).all()
 
 
-def dcn_problem(torch, device, n, h, w, c, cout, stride, seed):
-    """A DeformConv layer's inputs at one path shape: x (n, h, w, c), the
-    raw conv_offset output of seeded non-zero offset weights (offsets of a
-    few pixels, some samples off the map) and a weight (cout, c, 3, 3)."""
+def dcn_problem(torch, device, n, h, w, c, cout, stride, seed, x=None):
+    """A DeformConv layer's inputs at one path shape: x (n, h, w, c), or
+    the given map, the raw conv_offset output of seeded non-zero offset
+    weights (offsets of a few pixels, some samples off the map) and a
+    weight (cout, c, 3, 3)."""
     from epropnp_tpu_torch.ops.deform_conv import DeformConv, conv_nhwc
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((n, h, w, c), generator=gen, device=device)
+    if x is None:
+        x = torch.randn((n, h, w, c), generator=gen, device=device)
     mod = DeformConv(c, cout, stride, bias=False).to(device)
     with torch.no_grad():
         mod.conv_offset.weight.normal_(0, 1.5 / (9 * c) ** 0.5, generator=gen)
@@ -517,7 +689,8 @@ def phase_e(torch, device):
             ho, wo = out_k.shape[1:3]
             # samples off the map: share of (position, tap) with a corner
             # outside (the offsets are the raw conv_offset output)
-            rows_, w4 = k3.corner_rows_and_weights(om, h, w, stride, 2.0)
+            rows_, w4 = k3.corner_rows_and_weights(om, (0, 0, h, w), (h, w),
+                                                   stride, 2.0)
             off_map = float(((w4 == 0).any(-1)).float().mean())
             err = float((out_k - out_t).abs().max())
             scale = float(out_t.abs().max())
@@ -557,6 +730,113 @@ def phase_e(torch, device):
                 ms=main['ms'], plain_ms=main['plain_ms'],
                 bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                 library_ms=None)
+
+
+FCOS_LEVELS_672 = [(84, 200), (42, 100), (21, 50), (11, 25), (6, 13)]
+E_VARIANT_SHAPES = [  # (n, h, w, c, cout, stride, what, variants)
+    (6, 42, 100, 256, 256, 1, 'backbone stage 3 (x22 per request)',
+     ('int8', 'bf16')),
+    (6, 84, 200, 256, 256, 2, 'backbone stage 3 first block',
+     ('int8', 'bf16')),
+    (6, 21, 50, 512, 512, 1, 'backbone stage 4 (x2 per request)',
+     ('int8', 'bf16')),
+    (6, None, None, 256, 256, 1, 'FCOS towers, packed canvas of '
+     'FCOS_LEVELS_672 (x2 per request)', ('int8',)),
+]
+
+
+def phase_e_variants(torch, device):
+    """K3's int8 (bf16 weight) and bf16 variants at the v1b_serving shapes,
+    each against its twin in the same variant (and an f64 twin), the int8
+    twin against the f32 twin."""
+    from epropnp_tpu_torch.ops import dcn_kernel as k3
+    from epropnp_tpu_torch.ops.level_pack import (
+        pack_levels, plan_level_packing)
+    bf16 = torch.bfloat16
+    rows = {'int8': [], 'bf16': []}
+    for i, (n, h, w, c, cout, stride, what, variants) in enumerate(
+            E_VARIANT_SHAPES):
+        levels = None
+        if h is None:  # the 5 FCOS levels of 672x1600 on one canvas
+            layout = plan_level_packing(FCOS_LEVELS_672)
+            gen = torch.Generator(device=device).manual_seed(71)
+            canvas = pack_levels([torch.randn((n, lh, lw, c), generator=gen,
+                                              device=device)
+                                  for lh, lw in FCOS_LEVELS_672], layout)
+            x, om, weight = dcn_problem(torch, device, n, None, None, c,
+                                        cout, 1, 70, x=canvas)
+            levels = layout.regions()
+            h, w = layout.canvas_hw
+            length = n * sum(lh * lw for lh, lw in FCOS_LEVELS_672)
+        else:
+            x, om, weight = dcn_problem(torch, device, n, h, w, c, cout,
+                                        stride, 60 + i)
+            ho, wo = k3.output_hw(h, w, stride)
+            length = n * ho * wo
+        w3 = k3.kernel_weight(weight)
+        xb = x.to(bf16)
+        with torch.no_grad():
+            ref32 = k3.dcn_reference(xb.float(), om, w3, None, stride, 2.0,
+                                     levels)
+            for variant in variants:
+                if variant == 'int8':
+                    xv, w3v = k3.quantize_nhwc(xb, w3.to(bf16))
+                else:
+                    xv, w3v = xb, w3.to(bf16)
+                run_k = lambda: k3.dcn_forward_cuda(  # noqa: E731
+                    xv, om, w3v, None, stride, 2.0, levels)
+                run_t = lambda: k3.dcn_reference(  # noqa: E731
+                    xv, om, w3v, None, stride, 2.0, levels)
+                out_k, out_t = run_k(), run_t()
+                out_64 = k3.dcn_reference(xv if variant == 'int8'
+                                          else xv.double(), om.double(),
+                                          w3v.double(), None, stride, 2.0,
+                                          levels)
+                torch.cuda.synchronize()
+                scale = float(out_t.float().abs().max())
+                err = float((out_k.float() - out_t.float()).abs().max())
+                err64_k = float((out_k.double() - out_64).abs().max())
+                err64_t = float((out_t.double() - out_64).abs().max())
+                err32 = float((out_t.float() - ref32.reshape(
+                    out_t.shape)).abs().max())
+                ms = time_ms(torch, run_k, warmup=2, iters=10)
+                plain_ms = time_ms(torch, run_t, warmup=1, iters=3)
+                flops = 2 * length * 9 * c * cout
+                nbytes = (xv.numel() * xv.element_size() + om.numel() * 4
+                          + w3v.numel() * 2 + length * cout * 2)
+                bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                row = dict(variant=variant, shape=[n, h, w, c, cout],
+                           stride=stride, levels=len(levels or [0]),
+                           what=what, L=length, gflop=flops / 1e9,
+                           max_abs_err=err, max_abs_twin=scale,
+                           f64_err_kernel=err64_k, f64_err_twin=err64_t,
+                           twin_vs_f32_twin=err32,
+                           twin_vs_f32_twin_rel=err32 / float(
+                               ref32.abs().max()),
+                           jax_budget=K3_INT8_JAX_BUDGET, ms=ms,
+                           plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=by,
+                           tflops=flops / ms / 1e9)
+                print('phase e+: K3 ' + json.dumps(row))
+                assert err <= K3_VARIANT_REL * scale, \
+                    f'K3 {variant} disagrees with its twin: {what}'
+                if variant == 'int8':
+                    assert err32 < K3_INT8_BUDGET * float(
+                        ref32.abs().max()), f'int8 beyond budget: {what}'
+                rows[variant].append(row)
+                del out_k, out_t, out_64
+    out = []
+    for variant in ('bf16', 'int8'):
+        main = rows[variant][0]
+        out.append(dict(name=f'dcn_forward {variant} (K3)', route='cuda',
+                        source='epropnp_tpu_torch/csrc/dcn_kernel.cu',
+                        replaces='epropnp_tpu/ops/pallas_dcn.py:102',
+                        max_abs_err=max(r['max_abs_err']
+                                        for r in rows[variant]),
+                        ms=main['ms'], plain_ms=main['plain_ms'],
+                        bound_ms=main['bound_ms'],
+                        bound_by=main['bound_by'], library_ms=None))
+    return out
 
 
 def det_pnp_problem(torch, device, b, n, seed):
@@ -722,7 +1002,7 @@ def phase_g(torch, device, num_requests=3):
     print('phase g: latency per 6-frame request (ms): '
           + json.dumps([round(v * 1e3, 3) for v in lat]))
     time_host_pipeline(imgs, ks)
-    kernels = profile_once(torch, lambda: api.inference_detector(
+    kernels, _ = profile_once(torch, lambda: api.inference_detector(
         model, cfg, imgs, ks, infer_fn=infer,
         rng=torch.Generator().manual_seed(0)), 'det serving', top=12)
     if kernels:
@@ -744,6 +1024,143 @@ def phase_g(torch, device, num_requests=3):
     assert rel <= DET_DENSE_REL, 'dense outputs: card and CPU disagree'
     assert pose_agree >= 0.99, 'poses: card and CPU twins disagree'
     return lat
+
+
+def build_serving_model(torch, device, int8=True):
+    """``DetConfig.v1b_serving()`` (or its bf16-gather variant) holding
+    phase g's seeded weights, BatchNorm statistics and residual scale;
+    returns (cfg, model, the f32 v1b cfg, the f32 model)."""
+    import dataclasses
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det.config import DetConfig
+    cfg32, model32 = build_det_model(torch, device, seed=0)
+    cfg = DetConfig.v1b_serving()
+    if not int8:
+        cfg = dataclasses.replace(cfg, int8_dcn_gather=False)
+    model = api.init_detector(cfg, device=device)
+    model.load_state_dict(model32.state_dict())
+    return cfg, model, cfg32, model32
+
+
+def serving_request(torch, model, cfg, infer, seed):
+    """One 6-frame request through ``det.api.inference_detector``: returns
+    (latency in s, live boxes, launches per kernel during it)."""
+    from epropnp_tpu_torch.det import api
+    imgs, ks = det_frames(100 + seed)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    _, out3d = api.inference_detector(model, cfg, imgs, ks, infer_fn=infer,
+                                      rng=torch.Generator().manual_seed(seed))
+    dt = time.perf_counter() - t0
+    after = launch_counts()
+    live = np.concatenate([a for im in out3d for a in im], 0)
+    return dt, live, {k: after[k] - before[k] for k in after}
+
+
+def phase_h(torch, device, num_requests=3):
+    """Det serving at v1b_serving: 3 requests of 6 frames, each through
+    K3-int8 28 times and K1 twice; a profile by kind; the 320x800 card
+    against CPU check of the dense outputs."""
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det import test as dtest
+    t0 = time.perf_counter()
+    cfg, model, cfg32, model32 = build_serving_model(torch, device)
+    torch.cuda.synchronize()
+    print(f'phase h: model built in {time.perf_counter() - t0:.1f} s, '
+          f'parameters {next(model.parameters()).dtype}')
+    infer = dtest.make_inference_fn(model, cfg, min_fcos_score=0.0)
+    lat = []
+    for req in range(num_requests + 1):  # request 0 warms up
+        dt, live, n = serving_request(torch, model, cfg, infer, req)
+        print(f'phase h: request {req}{" (warm-up)" if not req else ""}: 6 '
+              f'frames, latency {dt * 1e3:.3f} ms, launches {json.dumps(n)},'
+              f' live objects {len(live)}, '
+              f'finite={bool(np.isfinite(live).all())}')
+        assert n['K3-int8'] == SERVING_K3_LAUNCHES, \
+            f'v1b_serving request: K3-int8 not launched ' \
+            f'{SERVING_K3_LAUNCHES} times'
+        assert n['K3-f32'] == n['K3-bf16'] == 0, 'a float DCN was launched'
+        assert n['K1'] == 2, 'v1b_serving: K1 not launched twice'
+        assert np.isfinite(live).all(), 'non-finite live box'
+        if req:
+            lat.append(dt)
+    print('phase h: latency per 6-frame request (ms): '
+          + json.dumps([round(v * 1e3, 3) for v in lat]))
+    imgs, ks = det_frames(100)
+    kernels, wall_ms = profile_once(torch, lambda: api.inference_detector(
+        model, cfg, imgs, ks, infer_fn=infer,
+        rng=torch.Generator().manual_seed(0)), 'v1b_serving', top=15)
+    if kernels:
+        kinds = {'k3_int8': ('dcn_forward',),
+                 'k1': ('lm_solve',),
+                 'transposes': ('nchwtonhwc', 'nhwctonchw', 'transpose'),
+                 'norms': ('batch_norm', 'bn_fw', 'norm'),
+                 'convs_and_gemms': ('conv', 'fprop', 'xmma', 'implicit',
+                                     'cudnn', 'cutlass', 'gemm', 'nvjet'),
+                 'copies_and_casts': ('copy', 'cast')}
+        by_kind, rest = {k: 0.0 for k in kinds}, 0.0
+        for name, ms, _ in kernels:
+            low = name.lower()
+            kind = next((k for k, keys in kinds.items()
+                         if any(key in low for key in keys)), None)
+            if kind is None:
+                rest += ms
+            else:
+                by_kind[kind] += ms
+        busy = sum(k[1] for k in kernels)
+        print('phase h: device time by kind (ms): ' + json.dumps(dict(
+            by_kind, other=rest, device_busy=busy,
+            host_gap=wall_ms - busy)))
+    rel, spread = serving_reduced_size(torch, model, cfg, model32, cfg32)
+    print(f'phase h: 320x800 card vs CPU, both v1b_serving: dense max rel '
+          f'err {rel:.3e}; CPU v1b_serving vs CPU f32 v1b {spread:.3e}; '
+          f'rule <= {SERVING_SPREAD_FACTOR:g} x that spread')
+    assert rel <= SERVING_SPREAD_FACTOR * spread, \
+        'v1b_serving dense outputs: card and CPU disagree'
+    return lat
+
+
+def serving_reduced_size(torch, model, cfg, model32, cfg32, seed=7):
+    """One 320x800 image through the dense stage: the serving model on the
+    card (bf16 convs, K3-int8) and on the CPU (bf16 convs, K3-int8's
+    twin), and the f32 model on the CPU. Returns (max over dense outputs
+    of max|card - cpu| / max|cpu|, the same for the CPU serving model
+    against the CPU f32 model)."""
+    import copy
+    from epropnp_tpu_torch.det import test as dtest
+    from epropnp_tpu_torch.det.pipelines import default_pipeline
+    device = next(model.parameters()).device
+    imgs, ks = det_frames(seed, num=1, h=320, w=800)
+    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]))
+    flat = lambda d: [a.float().cpu() for o in d[0] for a in o] + [  # noqa: E731,E501
+        a.float().cpu() for a in d[1:]]
+    outs = []
+    for m, c, dev in ((model, cfg, device),
+                      (copy.deepcopy(model).cpu(), cfg, 'cpu'),
+                      (copy.deepcopy(model32).cpu(), cfg32, 'cpu')):
+        img = torch.as_tensor(s['img'][None], dtype=torch.float32).to(dev)
+        outs.append(flat(dtest.make_inference_fn(m, c).dense(img)))
+    rel = lambda xs, ys: max(float((a - b).abs().max() / b.abs().max())  # noqa: E731,E501
+                             for a, b in zip(xs, ys) if b.abs().max() > 0)
+    return rel(outs[0], outs[1]), rel(outs[1], outs[2])
+
+
+def phase_h_bf16(torch, device):
+    """One request of the bf16-gather variant (v1b_serving with
+    ``int8_dcn_gather`` off) after a warm-up: 28 K3-bf16 launches."""
+    from epropnp_tpu_torch.det import test as dtest
+    cfg, model, _, _ = build_serving_model(torch, device, int8=False)
+    infer = dtest.make_inference_fn(model, cfg, min_fcos_score=0.0)
+    for req in range(2):  # request 0 warms up
+        dt, live, n = serving_request(torch, model, cfg, infer, req)
+        print(f'phase h, bf16 gather: request {req}'
+              f'{" (warm-up)" if not req else ""}: latency {dt * 1e3:.3f} '
+              f'ms, launches {json.dumps(n)}, live objects {len(live)}')
+        assert n['K3-bf16'] == SERVING_K3_LAUNCHES, \
+            'bf16-gather request: K3-bf16 not launched 28 times'
+        assert n['K3-int8'] == n['K3-f32'] == 0
+        assert np.isfinite(live).all(), 'non-finite live box'
 
 
 def time_host_pipeline(imgs, ks):
@@ -863,8 +1280,6 @@ def main() -> int:
     device = torch.device('cuda', 0)
 
     from epropnp_tpu_torch import kernels
-    from epropnp_tpu_torch.ops import dcn_kernel
-    from epropnp_tpu_torch.ops.pnp import lm_kernel, rslm_kernel
     t0 = time.perf_counter()
     lib_path = kernels.build()
     kernels.load_library()
@@ -877,47 +1292,56 @@ def main() -> int:
     print(gpu_name_and_limit())
 
     failed, entries = [], {}
-    # the kernels against their twins (phases a, b: K1, K2; e: K3; f: K1
-    # in the Det mode); these launches are not the main path's
-    for name, phase in (('a', phase_a), ('b', phase_b), ('e', phase_e),
-                        ('f', phase_f)):
+    # the kernels against their twins (a, b: K1, K2; b+: K2's legacy
+    # layout; e, e+: K3's variants; f: K1 in the Det mode); these launches
+    # are not the main run's
+    for name, phase in (('a', phase_a), ('b', phase_b),
+                        ('b+', phase_b_legacy), ('e', phase_e),
+                        ('e+', phase_e_variants), ('f', phase_f)):
         try:
             entries[name] = phase(torch, device)
         except Exception:  # noqa: BLE001 - report every phase, then fail
             traceback.print_exc()
             failed.append(name)
 
-    # the main path: counters from 0, read right after phases c, d and g
-    lm_kernel.launches = 0
-    rslm_kernel.launches = 0
-    dcn_kernel.launches = 0
-    for name, phase in (('c', phase_c), ('d', phase_d), ('g', phase_g)):
+    # the main run: each path a caller drives, its counters from 0 just
+    # before it and read just after it
+    paths = (('c', lambda: phase_c(torch, device)),
+             ('d', lambda: phase_d(torch, device)),
+             ('b+ entry', lambda: path_legacy_entry(torch, device)),
+             ('g', lambda: phase_g(torch, device)),
+             ('h', lambda: phase_h(torch, device)),
+             ('h bf16 gather', lambda: phase_h_bf16(torch, device)))
+    totals = dict.fromkeys(kernel_counters(), 0)
+    for name, fn in paths:
         try:
-            phase(torch, device)
+            counts = drive(torch, fn)
         except Exception:  # noqa: BLE001
             traceback.print_exc()
             failed.append(name)
-    torch.cuda.synchronize()
-    counts = {'a': lm_kernel.launches, 'b': rslm_kernel.launches,
-              'e': dcn_kernel.launches}
-    print(f'launches on the main path: lm_solve (K1) {counts["a"]}, '
-          f'rslm_init (K2) {counts["b"]}, dcn_forward (K3) {counts["e"]}')
-    for key in counts:  # phase a checks K1, phase b K2, phase e K3
-        if counts[key] == 0:
-            failed.append(f'{key}: kernel not launched on the main path')
-        if key in entries:
-            entries[key]['launches'] = counts[key]
-
-    rows = [entries[k] for k in ('a', 'b', 'e') if k in entries]
-    if rows:
-        print(json.dumps({'kernels': rows}))
+            continue
+        print(f'launches in path {name}: {json.dumps(counts)}')
+        for key, value in counts.items():
+            totals[key] += value
+    print('launches on the main run: ' + json.dumps(totals))
+    variants = entries.get('e+') or [None, None]
+    rows = {'K1': entries.get('a'), 'K2': entries.get('b'),
+            'K2-legacy': entries.get('b+'), 'K3-f32': entries.get('e'),
+            'K3-bf16': variants[0], 'K3-int8': variants[1]}
+    for key, row in rows.items():
+        if totals[key] == 0:
+            failed.append(f'{key}: kernel not launched on the main run')
+        if row is not None:
+            row['launches'] = totals[key]
+    present = [row for row in rows.values() if row is not None]
+    if present:
+        print(json.dumps({'kernels': present}))
     if failed:
         print(f'chip_smoke: FAILED phases {failed}', file=sys.stderr)
         return 1
-    # the run uses one card, whatever the host exposes
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': 1}}))
+        'count': torch.cuda.device_count()}}))
     return 0
 
 

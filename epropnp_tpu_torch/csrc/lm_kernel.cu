@@ -109,7 +109,8 @@ lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
     ev(pose, cost, jtj, g);
     float radius = prm.initial_trust_region_radius, decrease = 2.f;
     for (int it = 0; it < prm.num_iter; ++it)
-      lm_trust_region_step(prm, pose, cost, jtj, g, radius, decrease, ev);
+      lm_trust_region_step<DOF>(prm, pose, cost, jtj, g, radius, decrease,
+                                ev);
   }
 
   if (lane == 0) {

@@ -21,10 +21,7 @@
 
 namespace epropnp {
 
-constexpr int kDof = 6;       // tangent-space dimension
-constexpr int kPoseDim = 7;   // [t, q]
-constexpr int kTri = kDof * (kDof + 1) / 2;  // JtJ lower triangle
-
+// Pose size ([t, q] or [t, yaw]) and JtJ lower-triangle size of a dof.
 template <int DOF>
 __host__ __device__ constexpr int pose_dim() { return DOF == 4 ? 4 : 7; }
 template <int DOF>
@@ -132,12 +129,13 @@ __device__ __forceinline__ float huber_cost(float ss, float s_sqrt,
 }
 
 // Huber cost of one point (scoring: no Jacobian).
+template <int DOF = 6>
 __device__ __forceinline__ float point_cost(const float* r, const float* t,
                                             const ObjParams& o, float z_min,
                                             float x, float y, float z,
                                             float ut, float vt, float wu,
                                             float wv) {
-  const Proj p = project(r, t, o, z_min, x, y, z);
+  const Proj p = project<DOF>(r, t, o, z_min, x, y, z);
   const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
   const float ss = ru * ru + rv * rv;
   return huber_cost(ss, sqrtf(fmaxf(ss, 1e-24f)), o.delta);
@@ -258,33 +256,34 @@ __device__ __forceinline__ void pose_add(const float* pose, const float* step,
 // One trust-region LM update (pallas_lm.py lm_body). ``ev`` evaluates a
 // pose into (cost, jtj, g). State is updated in place; the accept/reject
 // order is that of the reference.
-template <typename Eval>
+template <int DOF = 6, typename Eval>
 __device__ __forceinline__ void lm_trust_region_step(
     const LMParams& prm, float* pose, float& cost, float* jtj, float* g,
     float& radius, float& decrease, Eval ev) {
-  float damped[kTri];
+  constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
+  float damped[kT];
 #pragma unroll
-  for (int i = 0; i < kTri; ++i) damped[i] = jtj[i];
+  for (int i = 0; i < kT; ++i) damped[i] = jtj[i];
 #pragma unroll
-  for (int a = 0; a < kDof; ++a) {
+  for (int a = 0; a < kD; ++a) {
     const float d = jtj[a * (a + 1) / 2 + a];
     damped[a * (a + 1) / 2 + a] =
         d + fminf(fmaxf(d, prm.min_lm_diagonal), prm.max_lm_diagonal) /
                 radius + prm.eps;
   }
-  float step[kDof];
-  chol_solve(damped, g, step);
-  float pose_new[kPoseDim];
-  pose_add(pose, step, pose_new);
-  float cost_new, jtj_new[kTri], g_new[kDof];
+  float step[kD];
+  chol_solve<DOF>(damped, g, step);
+  float pose_new[kP];
+  pose_add<DOF>(pose, step, pose_new);
+  float cost_new, jtj_new[kT], g_new[kD];
   ev(pose_new, cost_new, jtj_new, g_new);
 
   float mcc = 0.f;
 #pragma unroll
-  for (int a = 0; a < kDof; ++a) {
+  for (int a = 0; a < kD; ++a) {
     float hs = 0.f;
 #pragma unroll
-    for (int b = 0; b < kDof; ++b) {
+    for (int b = 0; b < kD; ++b) {
       const int key = a >= b ? a * (a + 1) / 2 + b : b * (b + 1) / 2 + a;
       hs += jtj[key] * step[b];
     }
@@ -294,12 +293,12 @@ __device__ __forceinline__ void lm_trust_region_step(
   const bool ok = rel >= prm.min_relative_decrease && mcc > 0.f;
   if (ok) {
 #pragma unroll
-    for (int i = 0; i < kPoseDim; ++i) pose[i] = pose_new[i];
+    for (int i = 0; i < kP; ++i) pose[i] = pose_new[i];
     cost = cost_new;
 #pragma unroll
-    for (int i = 0; i < kTri; ++i) jtj[i] = jtj_new[i];
+    for (int i = 0; i < kT; ++i) jtj[i] = jtj_new[i];
 #pragma unroll
-    for (int i = 0; i < kDof; ++i) g[i] = g_new[i];
+    for (int i = 0; i < kD; ++i) g[i] = g_new[i];
   }
   const float c = 2.f * rel - 1.f;
   const float r_ok = radius / fmaxf(1.f - c * c * c, 1.f / 3.f);

@@ -1,29 +1,34 @@
 // K2: fused random-sample LM (RANSAC-like) PnP initialisation.
 //
-// Replaces epropnp_tpu/ops/pnp/pallas_rslm.py::rslm_init_pallas on its
-// packed path _rslm_init_packed (body _make_packed_kernel). Per object:
+// Replaces epropnp_tpu/ops/pnp/pallas_rslm.py::rslm_init_pallas on both of
+// its layouts: the packed one, _rslm_init_packed (body _make_packed_kernel),
+// and the legacy one (body _make_kernel), which scores on the full set and
+// takes any N and num_points. The wrapper (rslm_kernel.py) picks the
+// scoring layout as the JAX entry does. Per object:
 //   1. the centre-based translation init (means and unbiased variances of
-//      the normalised image points and of the 3D points);
+//      the normalised image points and of the 3D points; at dof 4 the
+//      scale is std(y3d) / std(yc));
 //   2. an inclusive cdf of mean(w2d, -1), and num_proposals subsets of
 //      num_points indices drawn WITH replacement by inverse cdf: the first
 //      index whose inclusive cdf reaches u * total (u in (0, 1], so a
 //      zero-weight point is never drawn), clamped to N - 1;
 //   3. a random unit quaternion (Box-Muller from uniforms, tiny-norm guard)
-//      per proposal;
+//      per proposal, or at dof 4 a random yaw in [0, 2 pi);
 //   4. num_iter trust-region LM steps on every proposal's subset;
 //   5. each proposal's Huber cost on the strided scoring subsample
-//      (points 0, s, 2s, ... with s = N / score_n), and the argmin. On an
+//      (points 0, s, 2s, ... with s = N / score_n; the legacy layout and
+//      full scoring pass s = 1, score_n = N), and the argmin. On an
 //      exact tie the FIRST proposal wins (the TPU kernel averages the tied
 //      poses); a NaN cost never wins unless every cost is NaN.
 //
 // Random bits: Philox4x32-10 from curand, one subsequence per proposal,
 // seeded per object from the caller's (B,) int32 seed tensor. Draw order
 // per proposal: num_points index uniforms, then 8 uniforms (4 Box-Muller
-// pairs) for the quaternion. The PyTorch twin (rslm_kernel.py) replays the
-// same stream.
+// pairs) for the quaternion, or 1 uniform for the yaw. The PyTorch twin
+// (rslm_kernel.py) replays the same stream.
 //
-// Scope: 6DoF, no projection bounds (what the bench path runs); the Pallas
-// kernel's dof 4 and bounds options are not ported yet.
+// Scope: dof 6 or 4 (template DOF), no projection bounds; the packed
+// Pallas kernel's bounds option is not ported yet.
 //
 // What bounds it on an H100: issue latency of small dependent scalar work.
 // Per proposal: a 16-point LM with an unrolled 6x6 Cholesky per step, then
@@ -71,6 +76,7 @@ __device__ __forceinline__ void block_allreduce(float* v, float* scratch) {
   __syncthreads();
 }
 
+template <int DOF>
 __global__ void rslm_init_kernel(
     const int* __restrict__ seeds, const float* __restrict__ x3d,
     const float* __restrict__ x2d, const float* __restrict__ w2d,
@@ -123,10 +129,14 @@ __global__ void rslm_init_kernel(
   float var[5];
 #pragma unroll
   for (int i = 0; i < 5; ++i) var[i] = q[i] * bessel;
-  const float norm3 = sqrtf(var[2] + var[3] + var[4]);
-  const float normc = sqrtf(fmaxf(var[0] + var[1], 1e-12f));
-  const float scale =
-      0.816496580927726f * norm3 / fmaxf(normc, 1e-6f);  // sqrt(2/3)
+  float scale;
+  if constexpr (DOF == 4) {
+    scale = sqrtf(var[3]) / fmaxf(sqrtf(var[1]), 1e-6f);
+  } else {
+    const float norm3 = sqrtf(var[2] + var[3] + var[4]);
+    const float normc = sqrtf(fmaxf(var[0] + var[1], 1e-12f));
+    scale = 0.816496580927726f * norm3 / fmaxf(normc, 1e-6f);  // sqrt(2/3)
+  }
   const float t0[3] = {mu[0] * scale, mu[1] * scale, scale};
 
   // ---- 2. inclusive cdf of mean(w2d, -1): chunk scans + chunk offsets ----
@@ -153,7 +163,8 @@ __global__ void rslm_init_kernel(
   __syncthreads();
   const float total = cdf[N - 1];
 
-  float pose[kPoseDim];
+  constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
+  float pose[kP];
   float cost = INFINITY;
   if (p < P) {
     // ---- 3. sampling and the proposal's initial pose ----
@@ -182,48 +193,54 @@ __global__ void rslm_init_kernel(
     pose[0] = t0[0];
     pose[1] = t0[1];
     pose[2] = t0[2];
-    float nrm[4];
+    if constexpr (DOF == 4) {
+      pose[3] = curand_uniform(&st) * (2.f * (float)M_PI);
+    } else {
+      float nrm[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float u1 = fmaxf(curand_uniform(&st), 1e-12f);
-      const float u2 = curand_uniform(&st);
-      nrm[c] = sqrtf(-2.f * logf(u1)) * cosf(2.f * (float)M_PI * u2);
+      for (int c = 0; c < 4; ++c) {
+        const float u1 = fmaxf(curand_uniform(&st), 1e-12f);
+        const float u2 = curand_uniform(&st);
+        nrm[c] = sqrtf(-2.f * logf(u1)) * cosf(2.f * (float)M_PI * u2);
+      }
+      const float qn = sqrtf(nrm[0] * nrm[0] + nrm[1] * nrm[1] +
+                             nrm[2] * nrm[2] + nrm[3] * nrm[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        pose[3 + c] = qn < prm.eps ? (c == 0 ? 1.f : 0.f)
+                                   : nrm[c] / fmaxf(qn, 1e-30f);
     }
-    const float qn = sqrtf(nrm[0] * nrm[0] + nrm[1] * nrm[1] +
-                           nrm[2] * nrm[2] + nrm[3] * nrm[3]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      pose[3 + c] = qn < prm.eps ? (c == 0 ? 1.f : 0.f)
-                                 : nrm[c] / fmaxf(qn, 1e-30f);
 
     // ---- 4. trust-region LM on the proposal's subset ----
     auto ev = [&](const float* ps, float& c, float* jtj, float* g) {
       float r[9], t[3];
-      pose_rt(ps, r, t);
+      pose_rt<DOF>(ps, r, t);
       c = 0.f;
 #pragma unroll
-      for (int i = 0; i < kTri; ++i) jtj[i] = 0.f;
+      for (int i = 0; i < kT; ++i) jtj[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kDof; ++i) g[i] = 0.f;
+      for (int i = 0; i < kD; ++i) g[i] = 0.f;
       for (int i = 0; i < K; ++i) {
         const float* q7 = my + i * 7;
-        accumulate_point<true>(r, t, o, prm.z_min, Bounds{}, q7[0], q7[1],
-                               q7[2], q7[3], q7[4], q7[5], q7[6], c, jtj, g);
+        accumulate_point<true, DOF>(r, t, o, prm.z_min, Bounds{}, q7[0],
+                                    q7[1], q7[2], q7[3], q7[4], q7[5], q7[6],
+                                    c, jtj, g);
       }
     };
-    float jtj[kTri], g[kDof];
+    float jtj[kT], g[kD];
     ev(pose, cost, jtj, g);
     float radius = prm.initial_trust_region_radius, decrease = 2.f;
     for (int it = 0; it < prm.num_iter; ++it)
-      lm_trust_region_step(prm, pose, cost, jtj, g, radius, decrease, ev);
+      lm_trust_region_step<DOF>(prm, pose, cost, jtj, g, radius, decrease,
+                                ev);
 
-    // ---- 5. score on the strided subsample ----
+    // ---- 5. score on the strided subsample (or the full set) ----
     float r[9], t[3];
-    pose_rt(pose, r, t);
+    pose_rt<DOF>(pose, r, t);
     cost = 0.f;
     for (int j = 0; j < score_n; ++j) {
       const int n = j * score_stride;
-      cost += point_cost(
+      cost += point_cost<DOF>(
           r, t, o, prm.z_min, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
           __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
           __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1));
@@ -259,11 +276,12 @@ __global__ void rslm_init_kernel(
   __syncthreads();
   if (p == win_idx[0]) {
 #pragma unroll
-    for (int i = 0; i < kPoseDim; ++i) pose_out[b * kPoseDim + i] = pose[i];
+    for (int i = 0; i < kP; ++i) pose_out[b * kP + i] = pose[i];
     cost_out[b] = cost;
   }
 }
 
+template <int DOF>
 int launch(const int* seeds, const float* x3d, const float* x2d,
            const float* w2d, const float* cam, const float* delta,
            float* pose_out, float* cost_out, int B, int N, int P, int K,
@@ -272,10 +290,10 @@ int launch(const int* seeds, const float* x3d, const float* x2d,
   const int threads = (P + 31) / 32 * 32;
   const size_t smem = sizeof(float) * ((size_t)N + threads + (size_t)P * K * 7);
   cudaError_t err = cudaFuncSetAttribute(
-      rslm_init_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rslm_init_kernel<DOF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rslm_init_kernel<<<B, threads, smem, stream>>>(
+  rslm_init_kernel<DOF><<<B, threads, smem, stream>>>(
       seeds, x3d, x2d, w2d, cam, delta, pose_out, cost_out, N, P, K,
       score_stride, score_n, prm);
   return (int)cudaGetLastError();
@@ -284,26 +302,32 @@ int launch(const int* seeds, const float* x3d, const float* x2d,
 }  // namespace
 }  // namespace epropnp
 
-// Plain C entry point (loaded with ctypes). Returns the cudaError_t of the
-// launch; 0 means the kernel was queued on ``stream``.
+// Plain C entry point (loaded with ctypes). ``pose_out`` is (B, 7) at dof 6
+// and (B, 4) at dof 4. Returns the cudaError_t of the launch; 0 means the
+// kernel was queued on ``stream``.
 extern "C" int epropnp_rslm_init(
     const int* seeds, const float* x3d, const float* x2d, const float* w2d,
     const float* cam, const float* delta, float* pose_out, float* cost_out,
-    int B, int N, int num_points, int num_proposals, int num_iter,
+    int B, int N, int dof, int num_points, int num_proposals, int num_iter,
     int score_stride, int score_n, float z_min, float eps,
     float min_lm_diagonal, float max_lm_diagonal,
     float min_relative_decrease, float initial_trust_region_radius,
     float max_trust_region_radius, void* stream) {
   if (B <= 0) return 0;
   if (N < 2 || num_points < 1 || num_proposals < 1 || num_proposals > 1024 ||
-      score_n < 1 || (long long)(score_n - 1) * score_stride >= N)
+      score_n < 1 || (long long)(score_n - 1) * score_stride >= N ||
+      (dof != 4 && dof != 6))
     return (int)cudaErrorInvalidValue;
   epropnp::LMParams prm{num_iter, z_min, eps, min_lm_diagonal,
                         max_lm_diagonal, min_relative_decrease,
                         initial_trust_region_radius,
                         max_trust_region_radius};
-  return epropnp::launch(seeds, x3d, x2d, w2d, cam, delta, pose_out,
-                         cost_out, B, N, num_proposals, num_points,
-                         score_stride, score_n, prm,
-                         static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dof == 4)
+    return epropnp::launch<4>(seeds, x3d, x2d, w2d, cam, delta, pose_out,
+                              cost_out, B, N, num_proposals, num_points,
+                              score_stride, score_n, prm, s);
+  return epropnp::launch<6>(seeds, x3d, x2d, w2d, cam, delta, pose_out,
+                            cost_out, B, N, num_proposals, num_points,
+                            score_stride, score_n, prm, s);
 }

@@ -19,12 +19,10 @@ from .pipelines import REFERENCE_CROP_BOX, default_pipeline
 
 
 def build_detector(cfg: DetConfig, **overrides) -> EProPnPDet:
-    unported = [name for name in ('bf16_backbone', 'bf16_dense',
-                                  'int8_dcn_gather', 'level_packed_towers')
-                if getattr(cfg, name)]
-    if unported:
-        raise NotImplementedError(
-            f'TPU serving options not ported: {unported}')
+    """The model of ``cfg``, with its serving options mapped as the JAX API
+    maps them (bf16 backbone and dense stage, int8 DCN sampling,
+    level-packed towers). ``remat_dense`` and ``score_type`` concern
+    training only and change nothing here."""
     return EProPnPDet(
         num_classes=cfg.num_classes, backbone_depth=cfg.backbone_depth,
         embed_dims=cfg.embed_dims, num_heads=cfg.num_heads,
@@ -34,7 +32,11 @@ def build_detector(cfg: DetConfig, **overrides) -> EProPnPDet:
         offset_cls_agnostic=cfg.offset_cls_agnostic,
         pred_velo=cfg.pred_velo, pred_attr=cfg.pred_attr,
         num_attrs=cfg.num_attrs,
-        dcn_modulation_scale=cfg.dcn_modulation_scale, **overrides)
+        dcn_modulation_scale=cfg.dcn_modulation_scale,
+        dcn_int8_gather=cfg.int8_dcn_gather,
+        level_packed_towers=cfg.level_packed_towers,
+        backbone_dtype=torch.bfloat16 if cfg.bf16_backbone else None,
+        dense_dtype=torch.bfloat16 if cfg.bf16_dense else None, **overrides)
 
 
 def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
@@ -44,7 +46,8 @@ def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
     Its weights are torch's default initialisation (seed with
     ``torch.manual_seed``).
 
-    On the card, serve with ``torch.backends.cudnn.benchmark = True`` and
+    The parameters stay f32 under the bf16 serving options. On the card,
+    serve with ``torch.backends.cudnn.benchmark = True`` and
     ``torch.backends.cudnn.benchmark_limit = 0``: cuDNN's default f32
     heuristics run several of this model's 3x3 convolutions at a batch of
     6 frames as FFT tiling, up to ~400 ms per call against ~1 ms for the

@@ -4,9 +4,9 @@
 Mirrors the released mmcv config files
 (EPro-PnP-Det/configs/epropnp_det_basic.py and the v1b variants) as frozen
 dataclasses; ``basic()`` / ``v1b()`` factories reproduce the two published
-generations. The TPU serving options (``bf16_*``, ``int8_dcn_gather``,
-``level_packed_towers``) are not ported: ``det.api.build_detector`` raises
-on them.
+generations. ``v1b_serving()`` turns on the serving options
+(``bf16_*``, ``int8_dcn_gather``, ``level_packed_towers`` and the fused
+kernels), which ``det.api.build_detector`` maps onto the model.
 """
 
 from __future__ import annotations

@@ -9,16 +9,19 @@ run in NCHW inside (a channels-last model keeps them in NHWC memory with no
 copy). Bottleneck blocks of the ``dcn_stages`` use a deformable 3x3
 ``conv2`` (DCNv2, mmcv's bias-free ``ModulatedDeformConv2dPack`` layout),
 the strided first block included, as the Det backbone (R101-DCN).
+``dtype`` (bf16 for serving) is the compute dtype of the stem, the blocks
+(BatchNorms included: f32 statistics, bf16 output) and the DCNs; the
+parameters stay f32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ...ops.deform_conv import DeformConv
+from ...ops.deform_conv import Conv2d, DeformConv
 
 # depth -> (block, stage_sizes, stage_channels(last = feat dim))
 resnet_spec = {
@@ -37,7 +40,7 @@ def _bn(channels: int) -> nn.BatchNorm2d:
 
 def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(inplanes, planes, 1, stride, bias=False), _bn(planes))
+        Conv2d(inplanes, planes, 1, stride, bias=False), _bn(planes))
 
 
 class BasicBlock(nn.Module):
@@ -45,9 +48,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = _bn(planes)
         self.downsample = (_downsample(inplanes, planes, stride)
                            if stride != 1 or inplanes != planes else None)
@@ -63,18 +66,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 use_dcn: bool = False, dcn_modulation_scale: float = 2.0):
+                 use_dcn: bool = False, dcn_modulation_scale: float = 2.0,
+                 dcn_int8_gather: bool = False):
         super().__init__()
         self.use_dcn = use_dcn
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = _bn(planes)
         if use_dcn:
             self.conv2 = DeformConv(planes, planes, stride, bias=False,
-                                    modulation_scale=dcn_modulation_scale)
+                                    modulation_scale=dcn_modulation_scale,
+                                    int8_gather=dcn_int8_gather)
         else:
-            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+            self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = _bn(planes * 4)
         self.downsample = (_downsample(inplanes, planes * 4, stride)
                            if stride != 1 or inplanes != planes * 4 else None)
@@ -100,16 +105,21 @@ class ResNetBackbone(nn.Module):
             stage 4 is stride 32) to return.
         dcn_stages: 1-based stages whose bottlenecks use DCNv2.
         dcn_modulation_scale: 2.0 (from-scratch default) or 1.0 (mmcv).
+        dcn_int8_gather: int8 DCN sampling (serving only).
+        dtype: compute dtype; None computes in the input's dtype.
     """
 
     def __init__(self, depth: int = 34, out_indices: Sequence[int] = (4,),
                  dcn_stages: Sequence[int] = (),
-                 dcn_modulation_scale: float = 2.0):
+                 dcn_modulation_scale: float = 2.0,
+                 dcn_int8_gather: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         block_name, stage_sizes, stage_channels = resnet_spec[depth]
         block = BasicBlock if block_name == 'basic' else Bottleneck
         self.out_indices = tuple(out_indices)
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -121,14 +131,18 @@ class ResNetBackbone(nn.Module):
                 kwargs = {}
                 if block is Bottleneck and stage in dcn_stages:
                     kwargs = dict(use_dcn=True,
-                                  dcn_modulation_scale=dcn_modulation_scale)
+                                  dcn_modulation_scale=dcn_modulation_scale,
+                                  dcn_int8_gather=dcn_int8_gather)
                 blocks.append(block(inplanes, channels, stride, **kwargs))
                 inplanes = channels * block.expansion
             self.add_module(f'layer{stage}', nn.Sequential(*blocks))
         self.feat_channels = tuple(c * block.expansion for c in stage_channels)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """x: (bs, H, W, 3) NHWC -> tuple of (bs, h, w, C) features."""
+        """x: (bs, H, W, 3) NHWC -> tuple of (bs, h, w, C) features, in
+        the compute dtype."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = x.permute(0, 3, 1, 2)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         outs = []

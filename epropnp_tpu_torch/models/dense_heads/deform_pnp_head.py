@@ -10,7 +10,10 @@ Submodules carry the reference checkpoint's names: ``detector``,
 ``query_scale.scale``, ``query_proj``, ``pred_fc.{2i}``, the
 ``dim/score/scale/velo/attr`` branches, ``cls_emb``,
 ``attention_sampler``, ``obj_query_scale.{i}.scale``, ``pts_trans.{i}``,
-``x2d_pos_enc`` and ``corr_regs.{i}``. Maps are NHWC.
+``x2d_pos_enc`` and ``corr_regs.{i}``. Maps are NHWC. ``dense_dtype``
+(bf16 for serving) runs the dense convs, ``conv_upsampled`` with its GN,
+the posenc and ``k_proj``/``v_proj`` in that dtype; key and value come
+back in the input's dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.bbox_3d.coders import MultiClassLogDimCoder
-from ...ops.deform_conv import conv_nhwc
+from ...ops.deform_conv import Conv2d, conv_nhwc
 from ...ops.deformable_attention import DeformableAttentionSampler
 from ...ops.group_linear import GroupLinear
 from ...ops.positional_encoding import dense_posenc, points_to_enc
@@ -73,8 +76,12 @@ class DeformPnPHead(nn.Module):
                  dim_cls_agnostic: bool = False, pred_velo: bool = True,
                  pred_attr: bool = True, num_attrs: int = 9,
                  dcn_on_last_conv: bool = True,
-                 dcn_modulation_scale: float = 2.0, detector_cfg=None):
+                 dcn_modulation_scale: float = 2.0,
+                 dcn_int8_gather: bool = False,
+                 dense_dtype: Optional[torch.dtype] = None,
+                 detector_cfg=None):
         super().__init__()
+        self.dense_dtype = dense_dtype
         self.num_classes = num_classes
         self.strides = tuple(strides)
         self.output_stride = output_stride
@@ -92,22 +99,24 @@ class DeformPnPHead(nn.Module):
                                                det_lvl_range[1]],
                           emb_channels=embed_dims,
                           dcn_on_last_conv=dcn_on_last_conv,
-                          dcn_modulation_scale=dcn_modulation_scale)
+                          dcn_modulation_scale=dcn_modulation_scale,
+                          dcn_int8_gather=dcn_int8_gather,
+                          dense_dtype=dense_dtype)
         det_kwargs.update(detector_cfg or {})
         self.detector = FCOSEmbHead(**det_kwargs)
 
         chans = [in_channels] + list(lvl_feat_channels)
         self.convs = nn.ModuleList([
-            conv_module(nn.Conv2d(chans[i], chans[i + 1], 3, 1, 1,
-                                  bias=False))
+            conv_module(Conv2d(chans[i], chans[i + 1], 3, 1, 1,
+                               bias=False))
             for i in range(len(lvl_feat_channels))])
         n_dense = dense_lvl_range[1] - dense_lvl_range[0]
         self.conv_upsampled = conv_module(
-            nn.Conv2d(n_dense * chans[-1], dense_channels, 1, bias=False),
+            Conv2d(n_dense * chans[-1], dense_channels, 1, bias=False),
             nn.GroupNorm(32, dense_channels, eps=1e-5))
-        self.k_proj = nn.Conv2d(dense_channels + 2 * self.posenc_feats,
-                                embed_dims, 1)
-        self.v_proj = nn.Conv2d(dense_channels, embed_dims, 1)
+        self.k_proj = Conv2d(dense_channels + 2 * self.posenc_feats,
+                             embed_dims, 1)
+        self.v_proj = Conv2d(dense_channels, embed_dims, 1)
         self.query_scale = Scale(0.1)
         self.query_proj = nn.Linear(embed_dims, embed_dims)
         fcs = []
@@ -142,8 +151,10 @@ class DeformPnPHead(nn.Module):
         """FCOS outputs and the dense key/value maps (NHWC)."""
         lo, hi = self.det_lvl_range
         det_outs = self.detector(mlvl_feats[lo:hi])
+        in_dt = mlvl_feats[0].dtype
         dense_feats = []
         for x in mlvl_feats[self.dense_lvl_range[0]:self.dense_lvl_range[1]]:
+            x = x.to(self.dense_dtype or in_dt)
             for mod in self.convs:
                 x = torch.relu(conv_nhwc(mod.conv, x))
             dense_feats.append(x)
@@ -163,7 +174,7 @@ class DeformPnPHead(nn.Module):
         posenc = posenc.expand(concat.shape[:3] + posenc.shape[-1:])
         key = conv_nhwc(self.k_proj, torch.cat([concat, posenc], -1))
         value = conv_nhwc(self.v_proj, concat)
-        return det_outs, key, value
+        return det_outs, key.to(in_dt), value.to(in_dt)
 
     # --------------------------------------------------- correspondences
 

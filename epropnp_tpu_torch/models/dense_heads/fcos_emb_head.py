@@ -1,23 +1,33 @@
 """FCOS-style detection head with projected-3D-centre offsets and object
 embeddings (PyTorch, NHWC), counterpart of
-``epropnp_tpu/models/dense_heads/fcos_emb_head.py`` (the per-level forward
-and ``get_preds``; targets and losses come with Det training).
+``epropnp_tpu/models/dense_heads/fcos_emb_head.py`` (the per-level and the
+level-packed forward, and ``get_preds``; targets and losses come with Det
+training).
 
 Submodules carry mmdet's names: the ``cls_convs``/``reg_convs`` towers
 (``.{i}.conv`` and ``.{i}.gn``; with ``dcn_on_last_conv`` the last conv is
 a bias-free DCNv2), the branches ``conv_{cls,centerness,offset,emb}_prev``,
 the 1x1 predictors ``conv_cls``, ``conv_centerness``, ``conv_offset`` and
 the GN-wrapped ``conv_emb``.
+
+Serving options: ``dense_dtype`` (bf16) runs the towers in that dtype and
+casts their outputs back to the input's before the branches;
+``level_packed`` packs the levels into one canvas (``ops.level_pack``), so
+every tower and branch conv runs once and each tower DCN is one K3 launch,
+with GroupNorm per level; ``dcn_int8_gather`` quantizes the tower DCNs'
+sampling to int8.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ...ops.deform_conv import DeformConv, conv_nhwc
+from ...ops.deform_conv import Conv2d, DeformConv, conv_nhwc
+from ...ops.level_pack import (
+    map_levels, pack_levels, plan_level_packing, unpack_levels)
 from ..necks.fpn import conv_module
 
 
@@ -30,20 +40,31 @@ def gn_groups(channels: int, preferred: int = 32) -> int:
 
 def group_norm_nhwc(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """``gn`` (a torch GroupNorm) on an NHWC tensor: the same statistics as
-    flax's GroupNorm, over the spatial axes and each group's channels."""
+    flax's GroupNorm, over the spatial axes and each group's channels. A
+    bf16 input is normalised in f32 and the result rounded to bf16, as
+    flax does."""
     n, h, w, c = x.shape
     g = gn.num_groups
-    xg = x.reshape(n, h * w, g, c // g)
+    xg = x.reshape(n, h * w, g, c // g).to(torch.promote_types(
+        x.dtype, torch.float32))
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + gn.eps)).reshape(n, h, w, c)
-    return y * gn.weight + gn.bias
+    return (y * gn.weight + gn.bias).to(x.dtype)
 
 
-def conv_gn_relu(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """An mmcv ConvModule (conv -> GN -> ReLU) on NHWC."""
-    y = mod.conv(x) if isinstance(mod.conv, DeformConv) else conv_nhwc(
-        mod.conv, x)
-    return torch.relu(group_norm_nhwc(mod.gn, y))
+def conv_gn_relu(mod: nn.Module, x: torch.Tensor,
+                 layout=None) -> torch.Tensor:
+    """An mmcv ConvModule (conv -> GN -> ReLU) on NHWC; on a canvas of
+    levels (``layout``) the GroupNorm runs per level and the gaps come out
+    zero."""
+    if isinstance(mod.conv, DeformConv):
+        y = mod.conv(x, layout=layout)
+    else:
+        y = conv_nhwc(mod.conv, x)
+
+    def norm(t):
+        return torch.relu(group_norm_nhwc(mod.gn, t))
+    return norm(y) if layout is None else map_levels(y, layout, norm)
 
 
 class FCOSLevelOutputs(NamedTuple):
@@ -69,14 +90,19 @@ class FCOSEmbHead(nn.Module):
                  emb_channels: int = 256, offset_cls_agnostic: bool = True,
                  dcn_on_last_conv: bool = True,
                  dcn_modulation_scale: float = 2.0,
+                 dcn_int8_gather: bool = False,
                  cls_branch: Sequence[int] = (256,),
                  centerness_branch: Sequence[int] = (64,),
                  offset_branch: Sequence[int] = (256,),
-                 emb_branch: Sequence[int] = (256,)):
+                 emb_branch: Sequence[int] = (256,),
+                 dense_dtype: Optional[torch.dtype] = None,
+                 level_packed: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
         self.offset_cls_agnostic = offset_cls_agnostic
+        self.dense_dtype = dense_dtype
+        self.level_packed = level_packed
 
         def tower():
             mods = []
@@ -84,9 +110,10 @@ class FCOSEmbHead(nn.Module):
                 cin = in_channels if i == 0 else feat_channels
                 if dcn_on_last_conv and i == stacked_convs - 1:
                     conv = DeformConv(cin, feat_channels, bias=False,
-                                      modulation_scale=dcn_modulation_scale)
+                                      modulation_scale=dcn_modulation_scale,
+                                      int8_gather=dcn_int8_gather)
                 else:
-                    conv = nn.Conv2d(cin, feat_channels, 3, 1, 1, bias=False)
+                    conv = Conv2d(cin, feat_channels, 3, 1, 1, bias=False)
                 mods.append(conv_module(conv, nn.GroupNorm(
                     gn_groups(feat_channels), feat_channels, eps=1e-5)))
             return nn.ModuleList(mods)
@@ -115,29 +142,46 @@ class FCOSEmbHead(nn.Module):
             nn.GroupNorm(gn_groups(emb_channels), emb_channels, eps=1e-5))
 
     @staticmethod
-    def _run(mods, x):
+    def _run(mods, x, layout=None):
         for mod in mods:
-            x = conv_gn_relu(mod, x)
+            x = conv_gn_relu(mod, x, layout)
         return x
 
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[FCOSLevelOutputs, ...]:
-        """Per-level forward; the modules are shared across levels."""
+        """Per-level forward (the modules shared across levels), or one
+        pass over the canvas of all levels with ``level_packed``; outputs
+        in the input's dtype."""
+        in_dt = feats[0].dtype
+        ddt = self.dense_dtype or in_dt
+        layout = None
+        if self.level_packed and len(feats) > 1:
+            layout = plan_level_packing([(x.shape[1], x.shape[2])
+                                         for x in feats])
+            inputs = [pack_levels([x.to(ddt) for x in feats], layout)]
+        else:
+            inputs = [x.to(ddt) for x in feats]
+        maps = []
+        for x in inputs:
+            cls_feat = self._run(self.cls_convs, x, layout).to(in_dt)
+            reg_feat = self._run(self.reg_convs, x, layout).to(in_dt)
+            maps.append((
+                conv_nhwc(self.conv_cls,
+                          self._run(self.conv_cls_prev, cls_feat, layout)),
+                conv_nhwc(self.conv_centerness, self._run(
+                    self.conv_centerness_prev, reg_feat, layout)),
+                conv_nhwc(self.conv_offset, self._run(
+                    self.conv_offset_prev, reg_feat, layout)),
+                conv_gn_relu(self.conv_emb, self._run(
+                    self.conv_emb_prev, reg_feat, layout), layout)))
+        if layout is not None:
+            maps = list(zip(*(unpack_levels(m, layout) for m in maps[0])))
         outs = []
-        for x, stride in zip(feats, self.strides):
-            cls_feat = self._run(self.cls_convs, x)
-            reg_feat = self._run(self.reg_convs, x)
-            cls_score = conv_nhwc(self.conv_cls,
-                                  self._run(self.conv_cls_prev, cls_feat))
-            centerness = conv_nhwc(
-                self.conv_centerness,
-                self._run(self.conv_centerness_prev, reg_feat))
-            offset = conv_nhwc(self.conv_offset, self._run(
-                self.conv_offset_prev, reg_feat)) * stride
-            obj_emb = conv_gn_relu(self.conv_emb,
-                                   self._run(self.conv_emb_prev, reg_feat))
+        for (cls_score, centerness, offset, obj_emb), x, stride in zip(
+                maps, feats, self.strides):
+            offset = offset * stride
             n, h, w, _ = x.shape
-            pts = level_points(h, w, stride, x.dtype, x.device)
+            pts = level_points(h, w, stride, in_dt, x.device)
             pts_map = pts.reshape(h, w, 2)
             if self.offset_cls_agnostic:
                 center = offset + pts_map

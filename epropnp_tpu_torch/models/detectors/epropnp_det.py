@@ -4,11 +4,17 @@
 Submodules are ``backbone``, ``neck`` and ``bbox_head``, the top-level
 names of a released mmdet checkpoint. ``extract_feat`` and ``det_dense``
 take NHWC images; ``subheads`` runs the per-object stage.
+
+Serving options (``DetConfig.v1b_serving``): ``backbone_dtype`` computes
+the backbone and FPN in bf16 (parameters f32, the pyramid cast back to the
+image's dtype), ``dense_dtype`` the head's dense stage, ``dcn_int8_gather``
+quantizes every DCN's sampling to int8 and ``level_packed_towers`` runs
+the FCOS towers on one canvas of all levels.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -29,7 +35,12 @@ class EProPnPDet(nn.Module):
                  offset_cls_agnostic: bool = True, pred_velo: bool = True,
                  pred_attr: bool = True, num_attrs: int = 9,
                  dcn_on_last_conv: bool = True,
-                 dcn_modulation_scale: float = 2.0, detector_cfg=None):
+                 dcn_modulation_scale: float = 2.0,
+                 dcn_int8_gather: bool = False,
+                 level_packed_towers: bool = False,
+                 backbone_dtype: Optional[torch.dtype] = None,
+                 dense_dtype: Optional[torch.dtype] = None,
+                 detector_cfg=None):
         super().__init__()
         strides = tuple(strides)
         # the pyramid is rooted at the finest stride: C2.. for strides from
@@ -42,10 +53,11 @@ class EProPnPDet(nn.Module):
         self.backbone = ResNetBackbone(
             backbone_depth, out_indices=tuple(range(first_stage, 5)),
             dcn_stages=backbone_dcn_stages,
-            dcn_modulation_scale=dcn_modulation_scale)
+            dcn_modulation_scale=dcn_modulation_scale,
+            dcn_int8_gather=dcn_int8_gather, dtype=backbone_dtype)
         in_ch = self.backbone.feat_channels[first_stage - 1:]
         self.neck = FPN(in_channels=in_ch, out_channels=embed_dims,
-                        num_outs=len(strides))
+                        num_outs=len(strides), dtype=backbone_dtype)
         self.bbox_head = DeformPnPHead(
             num_classes=num_classes, in_channels=embed_dims, strides=strides,
             output_stride=output_stride,
@@ -57,12 +69,15 @@ class EProPnPDet(nn.Module):
             pred_attr=pred_attr, num_attrs=num_attrs,
             dcn_on_last_conv=dcn_on_last_conv,
             dcn_modulation_scale=dcn_modulation_scale,
+            dcn_int8_gather=dcn_int8_gather, dense_dtype=dense_dtype,
             detector_cfg=dict(offset_cls_agnostic=offset_cls_agnostic,
+                              level_packed=level_packed_towers,
                               **(detector_cfg or {})))
 
     def extract_feat(self, img: torch.Tensor):
-        """Images (n, h, w, 3) -> the FPN pyramid (NHWC)."""
-        return self.neck(self.backbone(img))
+        """Images (n, h, w, 3) -> the FPN pyramid (NHWC, the images'
+        dtype)."""
+        return tuple(f.to(img.dtype) for f in self.neck(self.backbone(img)))
 
     def det_dense(self, img: torch.Tensor, img_shape):
         """-> (FCOS level outputs, key, value)."""

@@ -1,4 +1,4 @@
-"""K3: the DCNv2 sampling contraction, and its plain twin.
+"""K3: the DCNv2 sampling contraction, its plain twin, and the int8 table.
 
 ``dcn_forward`` is what ``DeformConv`` calls. On a CUDA tensor it launches
 the hand-written kernel of ``csrc/dcn_kernel.cu`` (an implicit GEMM that
@@ -8,15 +8,28 @@ written with torch gathers and one product with the weight.
 
 For every output position (img, i, j) and output channel o::
 
-    out = bias[o] + sum_tap sum_ci bilinear_zeros(x[img], p_tap)[ci]
-                                   * mod_tap * W[o, ci, tap]
+    out = bias[o] + sum_tap sum_ci round_k(s_tap[ci]) * W[tap, ci, o]
+    s_tap = sum_corner bilinear_zeros(x[img], p_tap) * mod_tap    (in f32)
     p_tap = (j s + dx_tap + off_x, i s + dy_tap + off_y)       in [x, y]
     mod_tap = sigmoid(mask_tap) * modulation_scale
 
 with (dx_tap, dy_tap) in {-1, 0, 1}^2 row-major by (dy, dx). Layouts are
 mmcv's: ``offset_mask`` is the raw ``conv_offset`` output, (n, ho, wo, 27)
-NHWC with (dy, dx) for each tap then the 9 mask logits, and ``weight`` is
-(cout, c, 3, 3). A corner outside the map contributes 0.
+NHWC with (dy, dx) for each tap then the 9 mask logits; the weight is
+(cout, c, 3, 3), or (9, c, cout) in the kernel's layout. A corner outside
+the map contributes 0. Positions and corner weights are computed in f32
+from the offsets, whatever the map's dtype.
+
+Variants, as the TPU kernel's (``pallas_dcn.py:50-65``): the map is f32,
+bf16, or int8 from :func:`quantize_nhwc` (the per-channel scales folded
+into the weight). The kernel dtype is the weight's for an int8 map and the
+map's otherwise; the combined corner value is rounded to it (``round_k``),
+the products accumulate in f32, and bias and output are in that dtype.
+
+``levels`` turns the map into a canvas of pyramid levels (the packed FCOS
+towers, stride 1): a list of (y0, x0, h, w) regions; each level samples
+only its own region, and the output is (L, cout) with positions level by
+level, then image, then row-major.
 
 Forward only: the backward (``_bwd_chunked`` in the JAX package) comes
 with Det training, so the wrapper refuses inputs that require grad while
@@ -26,14 +39,19 @@ grad is enabled.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 TAPS = 9
+MAX_LEVELS = 8
+_TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# Launches of the CUDA kernel, counted by :func:`dcn_forward_cuda` alone.
+# Launches of the CUDA kernel, counted by :func:`dcn_forward_cuda` alone,
+# one counter per map dtype: f32, bf16 and int8.
 launches = 0
+launches_bf16 = 0
+launches_int8 = 0
 
 
 def output_hw(h: int, w: int, stride: int):
@@ -47,17 +65,50 @@ def kernel_weight(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).reshape(TAPS, c, cout).contiguous()
 
 
-def corner_rows_and_weights(offset_mask, h, w, stride, modulation_scale):
-    """Flat row indices into ``x.reshape(-1, c)`` (per image block of h*w
-    rows) and the 4 corner weights with validity and modulation folded in.
+def compute_dtype(x_dtype: torch.dtype, w_dtype: torch.dtype) -> torch.dtype:
+    """The kernel dtype: the weight's for an int8 map, else the map's."""
+    return w_dtype if x_dtype == torch.int8 else x_dtype
 
-    Returns ``(rows, w4)``, each (n, ho, wo, 9, 4): corners ordered
-    [y0x0, y0x1, y1x0, y1x1]; an invalid corner has row 0 and weight 0.
+
+def quantize_nhwc(x: torch.Tensor, weight3: torch.Tensor,
+                  eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel int8 quantization of an NHWC map, the counterpart of
+    ``pallas_dcn.quantize_packed_table``.
+
+    The channel scale is the amax over the whole map (every image and,
+    on a canvas, every level; zero pad rows and zero gaps do not change
+    it), at least ``eps``. Returns ``(q int8 (n, h, w, c), weight3 scaled
+    by scale / 127 in weight3's dtype)``, so that ``q @ scaled ~= x @ w``.
     """
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=(0, 1, 2)), min=eps)
+    q = torch.clamp(torch.round(xf / scale * 127.0), -127, 127).to(
+        torch.int8)
+    w_scaled = (weight3.float() * (scale / 127.0)[None, :, None]).to(
+        weight3.dtype)
+    return q, w_scaled
+
+
+def corner_rows_and_weights(offset_mask, region, canvas_hw, stride,
+                            modulation_scale):
+    """Flat row indices into ``x.reshape(-1, c)`` and the 4 corner weights
+    (validity and modulation folded in) of one level.
+
+    ``region`` is the level's (y0, x0, h, w) on a canvas of ``canvas_hw``
+    (the map itself for the per-level path); ``offset_mask`` is the
+    level's (n, ho, wo, 27). Returns ``(rows, w4)``, each (n, ho, wo, 9,
+    4): corners ordered [y0x0, y0x1, y1x0, y1x1]; an invalid corner has
+    row 0 and weight 0. Computed in f32 (f64 for an f64 ``offset_mask``).
+    """
+    y_org, x_org, h, w = region
+    hc, wc = canvas_hw
     n, ho, wo, _ = offset_mask.shape
-    dt, dev = offset_mask.dtype, offset_mask.device
-    off = offset_mask[..., :2 * TAPS].reshape(n, ho, wo, TAPS, 2)
-    mod = torch.sigmoid(offset_mask[..., 2 * TAPS:]) * modulation_scale
+    dt = torch.float64 if offset_mask.dtype == torch.float64 else \
+        torch.float32
+    om = offset_mask.to(dt)
+    dev = om.device
+    off = om[..., :2 * TAPS].reshape(n, ho, wo, TAPS, 2)
+    mod = torch.sigmoid(om[..., 2 * TAPS:]) * modulation_scale
     tap = torch.arange(TAPS, device=dev)
     base_y = (tap // 3 - 1).to(dt)
     base_x = (tap % 3 - 1).to(dt)
@@ -73,36 +124,61 @@ def corner_rows_and_weights(offset_mask, h, w, stride, modulation_scale):
     for k in range(4):
         yy, xx = y0 + (k >> 1), x0 + (k & 1)
         inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
-        yc = yy.clamp(0, h - 1).long()
-        xc = xx.clamp(0, w - 1).long()
-        rows.append(torch.where(inside, (img * h + yc) * w + xc, 0))
+        yc = yy.clamp(0, h - 1).long() + y_org
+        xc = xx.clamp(0, w - 1).long() + x_org
+        rows.append(torch.where(inside, (img * hc + yc) * wc + xc, 0))
         weights.append(torch.where(inside, cw[k] * mod, 0))
     return torch.stack(rows, -1), torch.stack(weights, -1)
 
 
 def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
-                  modulation_scale: float = 2.0) -> torch.Tensor:
+                  modulation_scale: float = 2.0,
+                  levels: Optional[Sequence[Tuple[int, int, int, int]]] = None
+                  ) -> torch.Tensor:
     """Plain torch twin of K3: gathers, the 4-corner combine and one
-    product with the weight. x (n, h, w, c) NHWC -> (n, ho, wo, cout)."""
-    n, h, w, c = x.shape
-    cout = weight.shape[0]
-    ho, wo = output_hw(h, w, stride)
-    rows, w4 = corner_rows_and_weights(offset_mask, h, w, stride,
-                                       modulation_scale)
-    flat = x.reshape(n * h * w, c)
+    product with the weight, in the variant the dtypes pick.
+
+    x (n, h, w, c) NHWC -> (n, ho, wo, cout); with ``levels`` (stride 1,
+    ``offset_mask`` on the same canvas as x) -> (L, cout).
+    """
+    n, hc, wc, c = x.shape
+    w3 = kernel_weight(weight) if weight.dim() == 4 else weight
+    cout = w3.shape[-1]
+    cdt = compute_dtype(x.dtype, w3.dtype)
+    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    regions = levels if levels is not None else [(0, 0, hc, wc)]
+    rows, w4 = [], []
+    for y0, x0, h, w in regions:
+        if levels is None:
+            om = offset_mask
+            s = stride
+        else:
+            om = offset_mask[:, y0:y0 + h, x0:x0 + w]
+            s = 1
+        r, wt = corner_rows_and_weights(om, (y0, x0, h, w), (hc, wc), s,
+                                        modulation_scale)
+        rows.append(r.reshape(-1, TAPS, 4))
+        w4.append(wt.reshape(-1, TAPS, 4).to(acc))
+    rows, w4 = torch.cat(rows), torch.cat(w4)
+    flat = x.reshape(n * hc * wc, c).to(acc)
     sampled = sum(flat[rows[..., k]] * w4[..., k, None] for k in range(4))
-    out = sampled.reshape(n * ho * wo, TAPS * c) @ kernel_weight(
-        weight).reshape(TAPS * c, cout)
+    sampled = sampled.to(cdt).to(acc)  # the operand of the product
+    out = sampled.reshape(-1, TAPS * c) @ w3.to(acc).reshape(TAPS * c, cout)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(cdt).to(acc)
+    out = out.to(cdt)
+    if levels is not None:
+        return out
+    ho, wo = output_hw(hc, wc, stride)
     return out.reshape(n, ho, wo, cout)
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtypes):
     if t.device != device:
         raise ValueError(f'{name}: on {t.device}, expected {device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'{name}: dtype {t.dtype}, the kernel takes float32')
+    if t.dtype not in dtypes:
+        raise TypeError(f'{name}: dtype {t.dtype}, the kernel takes '
+                        f'{[str(d) for d in dtypes]}')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name}: shape {tuple(t.shape)}, expected {shape}')
     if not t.is_contiguous() or t.data_ptr() % 16:
@@ -110,51 +186,88 @@ def _check(name, t, shape, device):
 
 
 def dcn_forward_cuda(x, offset_mask, weight3, bias=None, stride: int = 1,
-                     modulation_scale: float = 2.0) -> torch.Tensor:
-    """Launch K3 on CUDA tensors. ``weight3`` is already in the kernel's
-    (9, c, cout) layout (:func:`kernel_weight`)."""
-    global launches
+                     modulation_scale: float = 2.0,
+                     levels: Optional[Sequence[Tuple[int, int, int, int]]]
+                     = None) -> torch.Tensor:
+    """Launch K3 on CUDA tensors. ``weight3`` is in the kernel's (9, c,
+    cout) layout (:func:`kernel_weight`); bias and output are in the
+    kernel dtype; ``offset_mask`` is read as f32."""
+    global launches, launches_bf16, launches_int8
     from ..kernels import check_launch, load_library
 
     device = x.device
     if device.type != 'cuda':
         raise ValueError(f'dcn_forward_cuda needs CUDA tensors, got {device}')
-    n, h, w, c = x.shape
+    n, hc, wc, c = x.shape
     cout = weight3.shape[-1]
-    ho, wo = output_hw(h, w, stride)
-    if c % 16 or cout % 4:
-        raise ValueError(f'K3 takes c % 16 == 0 and cout % 4 == 0; got c={c}'
-                         f', cout={cout}')
-    if n * h * w * c >= 2 ** 31 or n * ho * wo * cout >= 2 ** 31:
+    if x.dtype not in _TYPE_CODE:
+        raise TypeError(f'x: dtype {x.dtype}, K3 takes f32, bf16 or int8')
+    cdt = compute_dtype(x.dtype, weight3.dtype)
+    w_types = ((torch.float32, torch.bfloat16) if x.dtype == torch.int8
+               else (x.dtype,))
+    chunk = 64 // x.element_size()
+    if c % chunk or cout % 4:
+        raise ValueError(f'K3 takes c % {chunk} == 0 ({x.dtype} map) and '
+                         f'cout % 4 == 0; got c={c}, cout={cout}')
+    if levels is None:
+        ho, wo = output_hw(hc, wc, stride)
+        table = [(0, 0, hc, wc, ho, wo)]
+        om_shape = (n, ho, wo, 3 * TAPS)
+        out_shape = (n, ho, wo, cout)
+    else:
+        if stride != 1:
+            raise ValueError('a level table runs at stride 1')
+        if not 1 <= len(levels) <= MAX_LEVELS:
+            raise ValueError(f'K3 takes 1-{MAX_LEVELS} levels, got '
+                             f'{len(levels)}')
+        for y0, x0, h, w in levels:
+            if y0 < 0 or x0 < 0 or y0 + h > hc or x0 + w > wc:
+                raise ValueError(f'level ({y0}, {x0}, {h}, {w}) outside the '
+                                 f'{hc}x{wc} canvas')
+        table = [(y0, x0, h, w, h, w) for y0, x0, h, w in levels]
+        om_shape = (n, hc, wc, 3 * TAPS)
+        out_shape = (n * sum(h * w for _, _, h, w in levels), cout)
+    if n * hc * wc * c >= 2 ** 31 or out_shape[0] * cout >= 2 ** 31 \
+            or n * hc * wc * 3 * TAPS >= 2 ** 31:
         raise ValueError('K3 indexes with 32-bit offsets; input too large')
-    _check('x', x, (n, h, w, c), device)
-    _check('offset_mask', offset_mask, (n, ho, wo, 3 * TAPS), device)
-    _check('weight3', weight3, (TAPS, c, cout), device)
+    _check('x', x, (n, hc, wc, c), device, (x.dtype,))
+    _check('offset_mask', offset_mask, om_shape, device, (torch.float32,))
+    _check('weight3', weight3, (TAPS, c, cout), device, w_types)
     if bias is not None:
-        _check('bias', bias, (cout,), device)
+        _check('bias', bias, (cout,), device, (cdt,))
     lib = load_library()
-    out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=device)
+    out = torch.empty(out_shape, dtype=cdt, device=device)
+    flat = [v for row in table for v in row]
+    table_c = (ctypes.c_int * len(flat))(*flat)
     ptr = lambda t: ctypes.c_void_p(  # noqa: E731
         None if t is None else t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.epropnp_dcn_forward(
-            ptr(x), ptr(offset_mask), ptr(weight3), ptr(bias), ptr(out), n,
-            h, w, c, ho, wo, cout, stride, modulation_scale,
-            ctypes.c_void_p(stream))
+            ptr(x), ptr(offset_mask), ptr(weight3), ptr(bias), ptr(out),
+            ctypes.cast(table_c, ctypes.c_void_p), len(table), n, hc, wc,
+            om_shape[1], om_shape[2], c, cout, stride, modulation_scale,
+            _TYPE_CODE[x.dtype], _TYPE_CODE[cdt], ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_dcn_forward')
-    launches += 1
+    if x.dtype == torch.int8:
+        launches_int8 += 1
+    elif x.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def dcn_forward(x, offset_mask, weight, bias=None, stride: int = 1,
                 modulation_scale: float = 2.0,
-                weight3: Optional[torch.Tensor] = None) -> torch.Tensor:
+                levels: Optional[Sequence[Tuple[int, int, int, int]]] = None
+                ) -> torch.Tensor:
     """K3 entry: the CUDA kernel for CUDA tensors, the twin for CPU tensors.
 
-    ``weight`` is mmcv's (cout, c, 3, 3); ``weight3`` may pass its kernel
-    layout, computed once by the caller. Any other device raises, and so
-    does an input that requires grad while grad is enabled (no backward).
+    ``weight`` is mmcv's (cout, c, 3, 3) or the kernel's (9, c, cout).
+    On the card the bias is cast to the kernel dtype and the offsets to
+    f32. Any other device raises, and so does an input that requires grad
+    while grad is enabled (no backward).
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -163,11 +276,13 @@ def dcn_forward(x, offset_mask, weight, bias=None, stride: int = 1,
             'dcn_forward is forward only: run it under torch.no_grad() (the '
             'DCN backward comes with Det training)')
     if x.device.type == 'cuda':
-        if weight3 is None:
-            weight3 = kernel_weight(weight)
-        return dcn_forward_cuda(x.contiguous(), offset_mask.contiguous(),
-                                weight3, bias, stride, modulation_scale)
+        w3 = kernel_weight(weight) if weight.dim() == 4 else weight
+        cdt = compute_dtype(x.dtype, w3.dtype)
+        return dcn_forward_cuda(
+            x.contiguous(), offset_mask.float().contiguous(),
+            w3.contiguous(), None if bias is None else bias.to(cdt),
+            stride, modulation_scale, levels)
     if x.device.type == 'cpu':
         return dcn_reference(x, offset_mask, weight, bias, stride,
-                             modulation_scale)
+                             modulation_scale, levels)
     raise ValueError(f'dcn_forward: unsupported device {x.device}')

@@ -1,17 +1,24 @@
 """K2: the fused random-sample LM (RSLM) init, and its plain twin.
 
 ``rslm_init`` is what ``RSLMSolver`` calls when the fused-init gate lets
-it. On a CUDA tensor it launches the hand-written kernel of
-``csrc/rslm_kernel.cu`` (one block per object, one thread per proposal)
-or raises; on a CPU tensor it runs :func:`rslm_init_reference`, the same
-function written with torch ops. The twin also takes dof 4 and projection
-bounds; the kernel runs dof 6 without bounds and raises on the rest.
+it, and the counterpart of the JAX entry ``rslm_init_pallas``. On a CUDA
+tensor it launches the hand-written kernel of ``csrc/rslm_kernel.cu`` (one
+block per object, one thread per proposal) or raises; on a CPU tensor it
+runs :func:`rslm_init_reference`, the same function written with torch
+ops. Both take dof 6 and 4; the twin also takes projection bounds, the
+kernel raises on them.
+
+The scoring follows the JAX entry's layout dispatch
+(``pallas_rslm.py:879-896``): shapes of the packed layout (num_points <=
+128 dividing 128, N % 128 == 0) score on the strided subsample that
+``score_points`` asks for (else on the full set); every other shape takes
+the legacy layout, which scores on the full set and refuses bounds.
 
 Per object: the centre-based translation init, ``num_proposals`` subsets
 of ``num_points`` indices drawn WITH replacement by inverse cdf over
 ``mean(w2d, -1)``, a random unit quaternion (or yaw) per proposal,
 ``num_iter`` trust-region LM steps on every proposal, each proposal's
-Huber cost on the strided scoring subsample, and the argmin (on an exact
+Huber cost on the scoring points, and the argmin (on an exact
 tie the first proposal wins; a NaN cost never wins unless all are NaN).
 
 Random bits: Philox4x32-10 as curand's ``curandStatePhilox4_32_10_t``
@@ -31,8 +38,10 @@ import torch
 
 from .lm_kernel import _check, _evaluate, _lm_trust_region_step
 
-# Launches of the CUDA kernel, counted by :func:`rslm_init_cuda` alone.
+# Launches of the CUDA kernel, counted by :func:`rslm_init_cuda` alone:
+# at shapes of the packed layout, and at the legacy layout's.
 launches = 0
+launches_legacy = 0
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -83,9 +92,26 @@ def philox_uniforms(seeds: torch.Tensor, num_streams: int,
     return bits.to(torch.float32) * (2.0 ** -32) + (2.0 ** -33)
 
 
-def _score_layout(n: int, score_points: Optional[int]) -> Tuple[int, int]:
-    """(stride, count) of the scoring subsample: the JAX wrapper's rule
-    (a multiple of 128 that divides N and is below N), else the full set."""
+def packed_layout(n: int, num_points: int) -> bool:
+    """The JAX entry's test for its packed kernel layout."""
+    return num_points <= 128 and 128 % num_points == 0 and n % 128 == 0
+
+
+def _score_layout(n: int, num_points: int, score_points: Optional[int],
+                  bounds=None) -> Tuple[int, int]:
+    """(stride, count) of the scoring points, as the JAX entry picks them.
+
+    Packed layout: a strided subsample where ``score_points`` is a multiple
+    of 128 that divides N and is below N, else the full set. Legacy layout
+    (any other shape): the full set, and projection bounds are refused.
+    """
+    if not packed_layout(n, num_points):
+        if bounds is not None:
+            raise ValueError(
+                'projection bounds need the packed layout (num_points <= 128 '
+                f'dividing 128, N % 128 == 0); got N={n}, num_points='
+                f'{num_points}')
+        return 1, n
     if (score_points is None or score_points % 128 != 0
             or n % score_points != 0 or score_points >= n):
         return 1, n
@@ -121,15 +147,21 @@ def rslm_init_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
                         min_relative_decrease: float = 1e-3,
                         initial_trust_region_radius: float = 30.0,
                         max_trust_region_radius: float = 1e16,
-                        score_points: Optional[int] = None
+                        score_points: Optional[int] = None,
+                        tile_obj: int = 4, group_pack: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch twin of the K2 kernel (same signature as
     :func:`rslm_init`). Returns ``(pose (B, pose_dim), cost (B,))``; the
-    cost is that of the scoring subsample."""
+    cost is that of the scoring points.
+
+    ``tile_obj`` and ``group_pack`` are the JAX entry's TPU layout knobs
+    (objects per grid step, lane blocks per step): accepted and ignored.
+    """
     b, n, _ = x3d.shape
     p, k = num_proposals, num_points
     dt = x3d.dtype
     pose_dim = 4 if dof == 4 else 7
+    stride, n_sc = _score_layout(n, k, score_points, bounds)
 
     t0 = _centre_init(x3d, x2d, cam_fxfycxcy, dof)            # (B, 3)
     cdf = torch.cumsum((w2d[..., 0] + w2d[..., 1]) * 0.5, -1)  # (B, N)
@@ -177,7 +209,6 @@ def rslm_init_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
             min_relative_decrease, max_trust_region_radius)
     pose = state[0]
 
-    stride, n_sc = _score_layout(n, score_points)
     sub = torch.cat([x3d, x2d, w2d], -1)[:, ::stride][:, :n_sc]  # (B, S, 7)
     sub = sub.repeat_interleave(p, 0).unbind(-1)
     cost_sc, _, _ = _evaluate(pose, sub, cam, dlt, dof, z_min, bounds=bnd,
@@ -200,16 +231,18 @@ def rslm_init_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
                    min_relative_decrease: float = 1e-3,
                    initial_trust_region_radius: float = 30.0,
                    max_trust_region_radius: float = 1e16,
-                   score_points: Optional[int] = None
+                   score_points: Optional[int] = None,
+                   tile_obj: int = 4, group_pack: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K2 kernel on CUDA tensors (f32, contiguous)."""
-    global launches
+    """Launch the K2 kernel on CUDA tensors (f32, contiguous).
+    ``tile_obj`` and ``group_pack`` are accepted and ignored (TPU knobs)."""
+    global launches, launches_legacy
     from ...kernels import check_launch, load_library
 
-    if dof != 6 or bounds is not None:
+    if dof not in (4, 6) or bounds is not None:
         raise NotImplementedError(
-            'rslm_init_cuda: the CUDA kernel runs dof 6 without bounds; got '
-            f'dof={dof}, bounds={bounds is not None}')
+            'rslm_init_cuda: the CUDA kernel runs dof 6 or 4 without bounds; '
+            f'got dof={dof}, bounds={bounds is not None}')
     b, n, _ = x3d.shape
     device = x3d.device
     if device.type != 'cuda':
@@ -226,22 +259,26 @@ def rslm_init_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
             or tuple(seeds.shape) != (b,) or not seeds.is_contiguous()):
         raise ValueError('seeds: expected a contiguous (B,) int32 tensor on '
                          f'{device}')
-    stride, n_sc = _score_layout(n, score_points)
+    stride, n_sc = _score_layout(n, num_points, score_points)
     lib = load_library()
-    pose = torch.empty((b, 7), dtype=torch.float32, device=device)
+    pose = torch.empty((b, 4 if dof == 4 else 7), dtype=torch.float32,
+                       device=device)
     cost = torch.empty((b,), dtype=torch.float32, device=device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.epropnp_rslm_init(
             ptr(seeds), ptr(x3d), ptr(x2d), ptr(w2d), ptr(cam_fxfycxcy),
-            ptr(delta), ptr(pose), ptr(cost), b, n, num_points,
+            ptr(delta), ptr(pose), ptr(cost), b, n, dof, num_points,
             num_proposals, num_iter, stride, n_sc, z_min, eps,
             min_lm_diagonal, max_lm_diagonal, min_relative_decrease,
             initial_trust_region_radius, max_trust_region_radius,
             ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_rslm_init')
-    launches += 1
+    if packed_layout(n, num_points):
+        launches += 1
+    else:
+        launches_legacy += 1
     return pose, cost
 
 

@@ -21,6 +21,8 @@ reversed):
   the flax bias is dropped where mmcv's DCN has none (it must be zero)
 - the q/k/v Dense layers of a point transformer -> one packed
   ``in_proj_weight`` (3E, E) with rows [q; k; v]
+- a bf16 leaf (a ``DeformConv`` kernel and bias of a bf16 module, as in
+  ``v1b_serving``) -> f32, which is exact: the port's parameters are f32
 
 Pure numpy until the final conversion to tensors.
 """
@@ -293,4 +295,9 @@ def det_state_dict(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
         _conv(out, f'neck.fpn_convs.{n_lat + j}.conv',
               neck[f'extra_conv_{j}'])
     _det_head(out, params['head'])
-    return {k: torch.tensor(np.asarray(v)) for k, v in out.items()}
+    return {k: torch.tensor(_float32_if_bf16(np.asarray(v)))
+            for k, v in out.items()}
+
+
+def _float32_if_bf16(a: np.ndarray) -> np.ndarray:
+    return a.astype(np.float32) if a.dtype.name == 'bfloat16' else a

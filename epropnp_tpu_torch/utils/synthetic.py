@@ -20,6 +20,24 @@ def _quat_to_rot(q: np.ndarray) -> np.ndarray:
     ], axis=-1).reshape(-1, 3, 3)
 
 
+# The bench problem's size and solver settings (bench.py).
+BENCH_B, BENCH_N = 1024, 512
+BENCH_LM_ITER = 10
+BENCH_RS_POINTS, BENCH_RS_PROPOSALS, BENCH_RS_ITER = 16, 64, 3
+
+
+def make_problem(seed: int = 0):
+    """``bench.make_problem``: B=1024 objects, N=512 noisy correspondences.
+
+    Returns float32 ``(x3d, x2d, w2d, cam, pose)``, with ``pose`` the
+    ground truth (B, 7) ``[t, q]``.
+    """
+    p = make_pnp_problem(BENCH_B, BENCH_N, seed)
+    return (p['x3d'].astype(np.float32), p['x2d'].astype(np.float32),
+            p['w2d'].astype(np.float32), p['cams'].astype(np.float32),
+            p['pose'].astype(np.float32))
+
+
 def make_pnp_problem(b: int, n: int, seed: int, dof: int = 6,
                      init_noise=(0.05, 0.1), px_noise: float = 0.5,
                      focal=(500.0, 500.0), depth=(2.0, 6.0)) -> dict:

@@ -2,10 +2,11 @@
 
 The same numpy inputs (``np.random.default_rng``) go through the flax
 ``DeformConv`` (the jnp path, and the Pallas contraction in interpret
-mode) and through the port's ``DeformConv``, whose weights come from the
-flax variables by the ``det_state_dict`` rules (mmcv layout, offset pairs
-swapped). float32 on both sides; the tolerances are the JAX DCN tests'
-forward ones, rtol 1e-4 / atol 1e-5 (``tests/test_pallas_dcn.py``).
+mode, with the float or the int8 table) and through the port's
+``DeformConv``, whose weights come from the flax variables by the
+``det_state_dict`` rules (mmcv layout, offset pairs swapped). float32 on
+both sides; the tolerances are the JAX DCN tests' forward ones, rtol 1e-4
+/ atol 1e-5 (``tests/test_pallas_dcn.py``), or 1e-4 of the largest entry.
 """
 
 import jax
@@ -15,10 +16,12 @@ import pytest
 import torch
 
 import epropnp_tpu.ops.pallas_dcn as pallas_dcn
+from epropnp_tpu.ops import level_pack as jlevel_pack
+from epropnp_tpu.ops.bilinear_sample import pack_patches
 from epropnp_tpu.models.backbones.resnet import Bottleneck as FlaxBottleneck
 from epropnp_tpu.ops.deform_conv import DeformConv as FlaxDeformConv
 from epropnp_tpu_torch.models.backbones.resnet import Bottleneck
-from epropnp_tpu_torch.ops import dcn_kernel
+from epropnp_tpu_torch.ops import dcn_kernel, level_pack
 from epropnp_tpu_torch.ops.deform_conv import DeformConv
 from epropnp_tpu_torch.utils import convert
 
@@ -39,11 +42,11 @@ def _randomize(variables, seed, scale=0.2):
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
-def _port_deform_conv(p, c_in, c_out, stride, bias=True):
+def _port_deform_conv(p, c_in, c_out, stride, bias=True, int8_gather=False):
     """A port DeformConv holding the flax DeformConv params ``p``."""
     sd = {}
     convert._deform_conv(sd, 'm', p, bias=bias)
-    mod = DeformConv(c_in, c_out, stride, bias=bias)
+    mod = DeformConv(c_in, c_out, stride, bias=bias, int8_gather=int8_gather)
     mod.load_state_dict({k[2:]: torch.from_numpy(np.ascontiguousarray(v))
                          for k, v in sd.items()}, strict=True)
     return mod
@@ -141,3 +144,65 @@ def test_dcn_wrapper_refuses_what_it_does_not_run():
                                        padding=1).permute(0, 2, 3, 1)
     np.testing.assert_allclose(out.numpy(), plain.detach().numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('w_dtype', [np.float32, jnp.bfloat16])
+def test_quantize_nhwc_matches_quantize_packed_table(w_dtype):
+    """``quantize_nhwc`` on a map against ``quantize_packed_table`` on the
+    map's patch table (every image, zero pad rows included): the same
+    int8 codes (a code may differ by 1 where x / scale * 127 falls on an
+    exact .5, which the two frameworks may round from either side: at most
+    one in 10^4 codes) and the same scaled weight, bit for bit."""
+    r = np.random.default_rng(21)
+    x = r.normal(size=(2, 9, 13, 32)).astype(np.float32)
+    x[1, 2, 3] *= 4.0  # a distinct channel maximum in one image
+    kern = (r.normal(size=(9, 32, 24)) * 0.1).astype(np.float32)
+    table = jax.vmap(pack_patches)(jnp.asarray(x)).reshape(-1, 4 * 32)
+    q_ref, k_ref = pallas_dcn.quantize_packed_table(
+        table, jnp.asarray(kern, w_dtype))
+    # the last corner block of patch row (yi, xi) is x[yi, xi]
+    q_ref = np.asarray(q_ref).reshape(2, 11, 15, 4, 32)[:, :9, :13, 3]
+    q, k = dcn_kernel.quantize_nhwc(
+        torch.from_numpy(x),
+        torch.from_numpy(kern).to(torch.bfloat16 if w_dtype is jnp.bfloat16
+                                  else torch.float32))
+    assert q.dtype == torch.int8
+    diff = np.abs(q.numpy().astype(np.int32) - q_ref.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+    np.testing.assert_array_equal(k.float().numpy(),
+                                  np.asarray(k_ref, np.float32))
+
+
+@pytest.mark.parametrize('stride', [1, 2, 'packed'])
+def test_int8_twin_matches_pallas_int8(stride, monkeypatch):
+    """The int8 path (``quantize_nhwc`` + K3's twin) against the flax
+    ``DeformConv(fused=True, int8_gather=True)`` (``quantize_packed_table``
+    and the Pallas contraction in interpret mode), per level at stride 1
+    and 2, and level-packed: f32 kernel, 1e-4 of the largest entry."""
+    monkeypatch.setattr(pallas_dcn, 'INTERPRET', True)
+    r = np.random.default_rng(31)
+    if stride == 'packed':
+        shapes = [(9, 14), (5, 7), (3, 4)]
+        feats = [r.normal(size=(2, h, w, 16)).astype(np.float32)
+                 for h, w in shapes]
+        jlay = jlevel_pack.plan_level_packing(shapes)
+        x = np.array(jlevel_pack.pack_levels(
+            [jnp.asarray(f) for f in feats], jlay))
+        layout = level_pack.plan_level_packing(shapes)
+    else:
+        x = r.normal(size=(2, 9, 13, 16)).astype(np.float32)
+        jlay = layout = None
+    m = FlaxDeformConv(8, strides=1 if stride == 'packed' else stride,
+                       fused=True, int8_gather=True)
+    vs = _randomize(m.init(jax.random.PRNGKey(0), jnp.asarray(x)), 4)
+    ref = np.asarray(m.apply(vs, jnp.asarray(x), layout=jlay))
+    mod = _port_deform_conv(vs['params'], 16, 8,
+                            1 if stride == 'packed' else stride,
+                            int8_gather=True)
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x), layout=layout).numpy()
+    assert out.shape == ref.shape
+    assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+    if stride == 'packed':  # zeros in the gaps, as the JAX canvas
+        gaps = layout.mask().numpy()[..., 0] == 0
+        assert (out[:, gaps] == 0).all()

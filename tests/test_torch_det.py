@@ -66,23 +66,26 @@ def _cfgs(use_pallas=False):
 
 
 def _randomize(variables, seed):
-    """f32 leaves: BatchNorm statistics and affine parameters, the DCN
-    offset convs (offsets of a pixel or so) and the class embeddings are
-    drawn anew; a DCN bias stays 0 (mmcv's DCN has none)."""
+    """BatchNorm statistics and affine parameters, the DCN offset convs
+    (offsets of a pixel or so) and the class embeddings are drawn anew; a
+    DCN bias stays 0 (mmcv's DCN has none). Leaves come out f32, except
+    that a bf16 leaf (the DCN kernel of a bf16 module) stays bf16: as f32
+    it would turn the JAX model's bf16 DCN into an f32 one."""
     r = np.random.default_rng(seed)
 
     def leaf(path, x):
         keys = [str(getattr(p, 'key', '')) for p in path]
+        dtype = x.dtype if x.dtype == jnp.bfloat16 else np.float32
         x = np.asarray(x, np.float32)
         if keys[-1] == 'var':
-            return r.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if keys[-1] == 'mean':
-            return r.normal(0, 0.1, x.shape).astype(np.float32)
-        if keys[-1] == 'scale' and x.ndim == 1:
-            return r.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if 'conv_offset' in keys or keys[-1] == 'cls_emb':
-            return r.normal(0, 0.05, x.shape).astype(np.float32)
-        return x
+            x = r.uniform(0.5, 1.5, x.shape)
+        elif keys[-1] == 'mean':
+            x = r.normal(0, 0.1, x.shape)
+        elif keys[-1] == 'scale' and x.ndim == 1:
+            x = r.uniform(0.5, 1.5, x.shape)
+        elif 'conv_offset' in keys or keys[-1] == 'cls_emb':
+            x = r.normal(0, 0.05, x.shape)
+        return np.asarray(jnp.asarray(x, np.float32).astype(dtype))
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
@@ -373,14 +376,27 @@ def test_det_state_dict_round_trips_at_v1b():
 
 
 def test_api_refuses_what_is_not_ported():
+    """Built with every serving option of ``v1b_serving`` mapped (no
+    option refused); what stays unported is refused: flip TTA, checkpoint
+    loading, and the int8 DCN (forward only) under autograd."""
     _, tcfg = _cfgs()
-    for opt in ('bf16_backbone', 'int8_dcn_gather', 'level_packed_towers'):
-        with pytest.raises(NotImplementedError):
-            tapi.build_detector(dataclasses.replace(tcfg, **{opt: True}))
+    serving = dataclasses.replace(
+        tcfg, bf16_backbone=True, bf16_dense=True, int8_dcn_gather=True,
+        level_packed_towers=True)
+    model = tapi.build_detector(serving, **_overrides())
+    assert model.backbone.dtype == torch.bfloat16
+    assert model.neck.dtype == torch.bfloat16
+    det = model.bbox_head.detector
+    assert det.level_packed and det.dense_dtype == torch.bfloat16
+    assert model.bbox_head.dense_dtype == torch.bfloat16
+    assert det.cls_convs[-1].conv.int8_gather
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(NotImplementedError, match='checkpoint'):
         tapi.init_detector(tcfg, checkpoint='model.pth', device='cpu')
     with pytest.raises(NotImplementedError, match='TTA'):
         tapi.inference_detector(None, tcfg, [], [], tta=True)
+    with pytest.raises(NotImplementedError, match='forward only'):
+        model.det_dense(torch.zeros(1, H, W, 3), (H, W))
 
 
 @pytest.mark.parametrize('hw,crop_box', [((90, 160), (0, 22, 160, 90)),
@@ -399,3 +415,148 @@ def test_inference_pipeline_matches_jax(hw, crop_box):
         np.testing.assert_array_equal(t[key], j[key], err_msg=key)
     for key in ('img_shape', 'ori_shape', 'flip', 'pad_shape'):
         assert tuple(np.atleast_1d(t[key])) == tuple(np.atleast_1d(j[key]))
+
+
+SERVING_FLAGS = dict(bf16_backbone=True, bf16_dense=True,
+                     level_packed_towers=True, int8_dcn_gather=True)
+
+
+@pytest.fixture(scope='module')
+def serving_models():
+    """The tiny model with the four serving options on, in both packages,
+    and JAX's f32 model, all on one set of weights: the serving tree keeps
+    its bf16 DCN leaves, the f32 tree is that tree cast to f32 (exact)."""
+    jcfg, tcfg = _cfgs()
+    jcfg_s = dataclasses.replace(jcfg, **SERVING_FLAGS)
+    tcfg_s = dataclasses.replace(tcfg, pnp=dataclasses.replace(
+        tcfg.pnp, use_pallas=True), **SERVING_FLAGS)
+    jmodel_s = jbuild_detector(jcfg_s, **_overrides())
+    variables = jax.jit(lambda k, x: jmodel_s.init(k, x, (H, W)))(
+        jax.random.PRNGKey(1), jnp.zeros((1, H, W, 3)))
+    variables = _randomize(dict(variables), 2)
+    assert any(a.dtype == jnp.bfloat16
+               for a in jax.tree_util.tree_leaves(variables))
+    variables32 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                         variables)
+    tmodel = tapi.init_detector(tcfg_s, device='cpu', **_overrides())
+    tmodel.load_state_dict(det_state_dict(variables, tcfg_s), strict=True)
+    return (jbuild_detector(jcfg, **_overrides()), variables32, jmodel_s,
+            variables, tmodel, tcfg_s)
+
+
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
+
+
+def _serving_rule(port, ref32, jax_serving, name):
+    """The port's serving path against JAX's f32 model: an RMS distance of
+    at most 1.5x that of JAX's own bf16 + level-packed model, plus the
+    int8 budget, 1e-2 of the output's largest entry (JAX drops the int8
+    gather on the CPU, ``deform_conv.py:102-104``, while the port's twin
+    quantizes). RMS, not the largest entry: two bf16 paths that round at
+    other places land 0.5-2x apart in max|d| on a single output of this
+    tiny model, and their RMS distances agree far better."""
+    port, ref32, jax_serving = (np.asarray(a, np.float32)
+                                for a in (port, ref32, jax_serving))
+    assert port.shape == ref32.shape, name
+    limit = 1.5 * _rms(jax_serving - ref32) + 1e-2 * np.abs(ref32).max()
+    assert _rms(port - ref32) <= limit, (name, _rms(port - ref32), limit)
+
+
+def test_serving_dense_matches_flax(serving_models):
+    """The dense outputs (FCOS levels, key, value) of the serving path:
+    bf16 backbone, FPN and dense stage, int8 DCN sampling, level-packed
+    towers."""
+    jmodel, variables32, jmodel_s, variables, tmodel, _ = serving_models
+    img = _inputs(2)['img']
+    ref = _jax_dense(jmodel, variables32, img)
+    jser = _jax_dense(jmodel_s, variables, img)
+    with torch.no_grad():
+        got = tmodel.det_dense(torch.from_numpy(img), (H, W))
+    flat = lambda d: [a for o in d[0] for a in o] + list(d[1:])  # noqa: E731
+    for i, (p, r, j) in enumerate(zip(flat(got), flat(ref), flat(jser))):
+        assert p.dtype == torch.float32
+        _serving_rule(p.numpy(), r, j, i)
+
+
+def test_serving_detections_match_flax(serving_models):
+    """The whole inference function of the serving model (K1's twin on
+    the CPU) against JAX's f32 model and JAX's serving model. bf16 swaps
+    near-tied candidates inside each image's top-k (JAX's own serving
+    model moves ~30% of the labels by position), so the candidates are
+    compared per image as sets: the same count of each class, and the
+    sorted scores, 3D scores and box dimensions under the serving rule.
+    Poses are not compared: the RSLM draws differ."""
+    jmodel, variables32, jmodel_s, variables, tmodel, tcfg_s = serving_models
+    inp = _inputs(4)
+    args = [jnp.asarray(inp[k]) for k in ('img', 'cam', 'shapes', 'shapes',
+                                          'flips', 'x2d', 'mask')]
+
+    def run_jax(model, v):
+        return jax.jit(lambda v, *a: jtest.make_inference_fn(
+            model, _cfgs()[0], max_obj_per_img=KPI, min_fcos_score=0.0)(
+            v, *a))(v, *args, jax.random.PRNGKey(0))
+    ref, jser = run_jax(jmodel, variables32), run_jax(jmodel_s, variables)
+    infer = ttest.make_inference_fn(tmodel, tcfg_s, max_obj_per_img=KPI,
+                                    min_fcos_score=0.0)
+    t = torch.from_numpy
+    before = lm_kernel.launches
+    got = infer(t(inp['img']), t(inp['cam']), t(inp['shapes']),
+                t(inp['shapes']), t(inp['flips']), t(inp['x2d']),
+                t(inp['mask']), rng=torch.Generator().manual_seed(0))
+    assert lm_kernel.launches == before  # K1's twin on the CPU
+    np.testing.assert_array_equal(got.img_inds.numpy(),
+                                  np.asarray(ref.img_inds))
+
+    def per_image(a):
+        return np.asarray(a).reshape((N_IMG, KPI) + np.shape(a)[1:])
+    hist = lambda lab: [np.bincount(x, minlength=3)  # noqa: E731
+                        for x in per_image(lab)]
+    np.testing.assert_array_equal(hist(got.labels.numpy()), hist(ref.labels))
+    srt = lambda a: np.sort(per_image(a), 1)  # noqa: E731
+    for name in ('scores', 'scores_3d'):
+        _serving_rule(srt(getattr(got, name).numpy()),
+                      srt(getattr(ref, name)), srt(getattr(jser, name)),
+                      name)
+    _serving_rule(srt(got.bbox_3d[:, :3].numpy()),
+                  srt(np.asarray(ref.bbox_3d)[:, :3]),
+                  srt(np.asarray(jser.bbox_3d)[:, :3]), 'dims')
+    live = got.valid.numpy()
+    assert live.any() and np.isfinite(got.bbox_3d.numpy()[live]).all()
+
+
+def test_det_state_dict_takes_v1b_serving_tree():
+    """A ``v1b_serving`` flax tree at full width holds bf16 DCN kernels
+    (``deform_conv.py:96-100``): ``det_state_dict`` casts them to f32
+    (exact), the strict load takes them, and ``det_model_variables`` of
+    the port's state dict gives every leaf back (bf16 leaves as their f32
+    values)."""
+    jcfg = jconfig.DetConfig.v1b_serving()
+    tcfg = tconfig.DetConfig.v1b_serving()
+    jmodel = jbuild_detector(jcfg)
+    shapes = jax.eval_shape(lambda k, x: jmodel.init(k, x, (64, 64)),
+                            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    r = np.random.default_rng(6)
+
+    def leaf(path, s):
+        keys = [str(getattr(p, 'key', '')) for p in path]
+        if ('DeformConv_0' in keys[-2:] or '_dcn' in keys[-2]) \
+                and keys[-1] == 'bias':
+            return np.zeros(s.shape, s.dtype)  # mmcv's DCNs have no bias
+        return np.asarray(jnp.asarray(r.normal(size=s.shape), s.dtype))
+    variables = jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+    n_bf16 = sum(a.dtype == jnp.bfloat16
+                 for a in jax.tree_util.tree_leaves(variables))
+    assert n_bf16 >= 2 * (26 + 2)  # kernel and bias of every DCN
+    tmodel = tapi.build_detector(tcfg)
+    tmodel.load_state_dict(det_state_dict(variables, tcfg), strict=True)
+    sd = {k: v.numpy() for k, v in tmodel.state_dict().items()}
+    back = det_model_variables(sd, depth=101, dcn_stages=(3, 4),
+                               num_fpn_laterals=3, num_fpn_extra=2)
+    flat_a = jax.tree_util.tree_flatten_with_path(back)[0]
+    flat_b = dict(jax.tree_util.tree_flatten_with_path(variables)[0])
+    assert len(flat_a) == len(flat_b)
+    for path, value in flat_a:
+        np.testing.assert_array_equal(
+            np.asarray(value), np.asarray(flat_b[path], np.float32),
+            err_msg=str(path))

@@ -141,6 +141,8 @@ def test_lm_kernel_dof4_bounds_matches_twin(cuda_device, b, n, num_iter):
     frac = lambda a, b_: torch.isclose(  # noqa: E731
         a.double(), b_.double(), rtol=1e-4, atol=0).float().mean()
     assert frac(ck, ct) >= 0.99 or frac(ck, c64) >= frac(ct, c64) - 0.005
+
+
 @pytest.mark.parametrize('n,h,w,c,cout,stride', [
     (2, 9, 13, 32, 24, 1), (2, 9, 13, 16, 64, 2), (1, 20, 30, 64, 132, 1)])
 def test_dcn_kernel_matches_twin(cuda_device, n, h, w, c, cout, stride):
@@ -161,3 +163,107 @@ def test_dcn_kernel_matches_twin(cuda_device, n, h, w, c, cout, stride):
     assert dcn_kernel.launches == before + 1
     assert out.shape == (n, ho, wo, cout)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _dcn_case(r, n, shapes, c, cout, stride, device):
+    """A map (one level, or a canvas of ``shapes`` levels), a raw offset
+    output reaching off the levels, a weight and a bias, f32."""
+    t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                               device=device)
+    if len(shapes) == 1:
+        (h, w), = shapes
+        ho, wo = dcn_kernel.output_hw(h, w, stride)
+        x = t(r.normal(size=(n, h, w, c)))
+        om = t(r.normal(scale=2.0, size=(n, ho, wo, 27)))
+        levels = None
+    else:
+        from epropnp_tpu_torch.ops.level_pack import (
+            pack_levels, plan_level_packing)
+        layout = plan_level_packing(shapes)
+        x = pack_levels([t(r.normal(size=(n, h, w, c))) for h, w in shapes],
+                        layout)
+        om = t(r.normal(scale=2.0, size=x.shape[:3] + (27,)))
+        levels = layout.regions()
+    weight = t(r.normal(size=(cout, c, 3, 3)) / np.sqrt(9 * c))
+    return x, om, weight, t(r.normal(size=cout)), levels
+
+
+@pytest.mark.parametrize('variant', ['int8', 'bf16', 'int8_f32w'])
+@pytest.mark.parametrize('n,shapes,c,cout,stride', [
+    (2, [(9, 13)], 64, 24, 1), (2, [(9, 13)], 128, 64, 2),
+    (2, [(12, 30), (6, 15), (3, 8)], 64, 68, 1)])
+def test_dcn_kernel_variants_match_twin(cuda_device, variant, n, shapes, c,
+                                        cout, stride):
+    """K3's int8 variant (bf16 or f32 weight) and bf16 variant against the
+    twin in the same variant, per level and with a 3-level table:
+    max|k - t| <= 8e-3 max|t| (about two bf16 ulps of the largest entry:
+    the combined corner value is rounded to bf16 on both sides, and a sum
+    in another order can round it the other way). The int8 twin is within
+    the JAX budget, 1e-2 max|t|, of the f32 twin."""
+    r = np.random.default_rng(n * c + cout + stride)
+    x, om, weight, bias, levels = _dcn_case(r, n, shapes, c, cout, stride,
+                                            cuda_device)
+    w3 = dcn_kernel.kernel_weight(weight)
+    with torch.no_grad():
+        ref32 = dcn_kernel.dcn_reference(x, om, w3, bias, stride, 2.0,
+                                         levels)
+        if variant == 'bf16':
+            xv, w3v = x.to(torch.bfloat16), w3.to(torch.bfloat16)
+        else:
+            xv, w3v = dcn_kernel.quantize_nhwc(
+                x, w3 if variant == 'int8_f32w' else w3.to(torch.bfloat16))
+        counter = 'launches_bf16' if variant == 'bf16' else 'launches_int8'
+        before = getattr(dcn_kernel, counter)
+        out = dcn_kernel.dcn_forward(xv, om, w3v, bias, stride, 2.0, levels)
+        ref = dcn_kernel.dcn_reference(xv, om, w3v, bias, stride, 2.0,
+                                       levels)
+    assert getattr(dcn_kernel, counter) == before + 1
+    assert out.dtype == ref.dtype == w3v.dtype
+    assert out.shape == ref.shape == ref32.shape
+    scale = ref.float().abs().max()
+    assert (out.float() - ref.float()).abs().max() <= 8e-3 * scale
+    if variant != 'bf16':
+        assert (ref.float() - ref32).abs().max() < 1e-2 * ref32.abs().max()
+    if levels is not None:  # every level's rows, in table order
+        assert out.shape[0] == n * sum(h * w for h, w in shapes)
+
+
+@pytest.mark.parametrize('dof', [4, 6])
+@pytest.mark.parametrize('n,num_points', [(96, 16), (384, 24), (256, 16)])
+def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
+                                               num_points):
+    """K2 at dof 4 and 6, at legacy shapes (full-set scoring) and a
+    packed one: 99% of the objects on the twin's cost at rtol 1e-4 (the
+    same Philox draws), or, where the f32 twin itself misses its f64 run
+    that often (dof 4: 98-99% of the objects agree), the kernel as close
+    to the f64 twin as the f32 twin is; and the returned cost is the
+    full-set cost of the returned pose at the legacy shapes (rtol 1e-3)."""
+    p = make_pnp_problem(512, n, 7, dof=dof)
+    x3d, x2d, w2d, cams = (torch.tensor(p[k], dtype=torch.float32,
+                                        device=cuda_device)
+                           for k in ('x3d', 'x2d', 'w2d', 'cams'))
+    delta = torch.full((512,), 10.0 / n, device=cuda_device)
+    args = (x3d, x2d, w2d, lm_kernel.camera_to_fxfycxcy(cams).contiguous(),
+            delta, torch.arange(512, dtype=torch.int32,
+                                device=cuda_device) * 7919)
+    kw = dict(dof=dof, num_points=num_points, num_proposals=64, num_iter=3,
+              score_points=128)
+    legacy = not rslm_kernel.packed_layout(n, num_points)
+    counter = 'launches_legacy' if legacy else 'launches'
+    before = getattr(rslm_kernel, counter)
+    pk, ck = rslm_kernel.rslm_init(*args, **kw)
+    _, ct = rslm_kernel.rslm_init_reference(*args, **kw)
+    _, c64 = rslm_kernel.rslm_init_reference(
+        *(a.double() for a in args[:5]), args[5], **kw)
+    assert getattr(rslm_kernel, counter) == before + 1
+    assert pk.shape == (512, 4 if dof == 4 else 7)
+    assert torch.isfinite(pk).all() and torch.isfinite(ck).all()
+    frac = lambda a, b_: torch.isclose(  # noqa: E731
+        a.double(), b_.double(), rtol=1e-4, atol=0).float().mean()
+    assert frac(ck, ct) >= 0.99 or frac(ck, c64) >= frac(ct, c64) - 0.005
+    if legacy:
+        ev = tpnp.evaluate_pnp(
+            x3d, x2d, w2d, pk, tpnp.PerspectiveCamera(cam_mats=cams,
+                                                      z_min=0.1),
+            tpnp.HuberPnPCost(delta=delta), out_cost=True).cost
+        assert torch.isclose(ck, ev, rtol=1e-3, atol=0).all()

@@ -295,9 +295,43 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.utils.convert, '
             'epropnp_tpu_torch.ops.pnp.rslm_kernel, '
             'epropnp_tpu_torch.det.api, epropnp_tpu_torch.det.test, '
-            'epropnp_tpu_torch.ops.dcn_kernel; '
+            'epropnp_tpu_torch.ops.dcn_kernel, '
+            'epropnp_tpu_torch.ops.level_pack, '
+            'epropnp_tpu_torch.utils.synthetic; '
             'assert "jax" not in sys.modules, "jax loaded"; '
+            'assert "bench" not in sys.modules; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, timeout=120, check=False, cwd=REPO_ROOT)
     assert out.returncode == 0 and out.stdout.strip() == 'ok', out.stderr
+
+
+def test_chip_smoke_imports_no_reference():
+    """``chip_smoke.py`` runs where JAX is absent: it imports neither jax,
+    the JAX package nor ``bench`` (a file of the JAX side)."""
+    import ast
+    with open(os.path.join(REPO_ROOT, 'chip_smoke.py')) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split('.')[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split('.')[0])
+    assert 'torch' in names or 'epropnp_tpu_torch' in names
+    assert not names & {'jax', 'jaxlib', 'flax', 'epropnp_tpu', 'bench'}
+
+
+@pytest.mark.parametrize('seed', [0, 5])
+def test_make_problem_is_bench_make_problem(seed):
+    """The port's copy of ``bench.make_problem`` gives the same arrays."""
+    import bench
+    from epropnp_tpu_torch.utils import synthetic
+    ours, ref = synthetic.make_problem(seed), bench.make_problem(seed)
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (synthetic.BENCH_LM_ITER, synthetic.BENCH_RS_POINTS,
+            synthetic.BENCH_RS_PROPOSALS, synthetic.BENCH_RS_ITER) == (
+        bench.LM_ITER, bench.RS_POINTS, bench.RS_PROPOSALS, bench.RS_ITER)
