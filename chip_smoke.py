@@ -50,10 +50,22 @@ h. Det serving at ``DetConfig.v1b_serving()`` (bf16 backbone and dense
    320x800 card-against-CPU check of the dense outputs; then one request
    with the bf16 DCN sampling (``int8_dcn_gather`` off), 28 K3-bf16
    launches.
+i. K1 in the training modes (the trust region with projection bounds,
+   with and without the JtJ output) against its twin (and an f64 twin):
+   (128, 16) x 3 and (32, 512) x 5 + JtJ at dof 6 (the 6DoF training
+   step), (1536, 128) x 10 + JtJ at dof 4 (the Det training solve).
+j. 6DoF training: ``sixdof.main.train_loop`` at
+   ``SixDoFConfig.epropnp_basic()`` width (CDPN-34, 32 crops of 256x256,
+   512 points, AMIS 512 samples in 4 iterations, RMSprop; K1 on) on
+   seeded synthetic batches, 10 steps of which the last 8 are timed; every
+   step must launch K1 twice, both in its training modes; then one step
+   profiled by kind. Before it (not counted), one step at reduced size
+   (ResNet-18, 64x64) on the card and on the CPU with the same draws.
+k. ``demo/fit_identity`` reduced (8192 poses, 2 epochs): the loss falls.
 
 Every launch counter is set to 0 just before each path that a user's
-call drives (b+'s entry calls, c, d, g, h and h's bf16 request) and read
-just after it. Earlier lines print each phase's numbers, the card's
+call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j and k) and
+read just after it. Earlier lines print each phase's numbers, the card's
 ``nvidia-smi`` name and power limit, and one JSON object with a row per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -120,6 +132,30 @@ SERVING_SPREAD_FACTOR = 2.0
 # DCNs per v1b_serving request: 26 backbone (stages 3-4 of ResNet-101)
 # and one per FCOS tower on the packed canvas.
 SERVING_K3_LAUNCHES = 28
+# K1 in the training modes (phase i): the JtJ is compared where the poses
+# agree, max|dJtJ| <= K1_JTJ_REL * max|JtJ| per object. Where fewer than
+# 99% of the poses meet the twin's, the kernel must meet the f64 twin's
+# pose within K1_POSE_F64_MARGIN of the share the f32 twin does: points
+# clamped at a bound lose their Jacobian rows and leave flat directions
+# in which f32 rounding moves the pose at equal cost (the f32 twin meets
+# its f64 pose for 78-82% of the Det-shaped objects, 97-100% at the 6DoF
+# shapes: H100 and CPU measurements of make_bounded_pnp_problem, PERF.md).
+K1_JTJ_REL, K1_POSE_F64_MARGIN = 1e-4, 0.02
+# The reduced training step, card against CPU (f32, TF32 off, the same
+# draws): the loss components within TRAIN_LOSS_REL of the CPU's; the
+# BatchNorm statistics within TRAIN_STATS_REL; the gradients and the
+# updates, by relative L2 distance to the CPU's f64 run, over all leaves
+# and for the worst leaf, at most TRAIN_F64_FACTOR times the CPU f32 run's
+# distance (+ 1e-5). A per-leaf rule on f32 alone cannot hold: ReLU
+# pre-activations within ~1e-6 of 0 change sign under f32 rounding, which
+# moves whole gradient rows, and the change reaches every upstream leaf;
+# over 3 seeds the CPU's f32 run lies 0.1-2.7% (global) and up to 4% (one
+# leaf) from its f64 run, with losses within 4.4e-5 (CPU measurement,
+# tiny_train_cfg with 4 crops).
+TRAIN_LOSS_REL, TRAIN_STATS_REL, TRAIN_F64_FACTOR = 1e-4, 1e-4, 3.0
+# Training steps of path j, and the K1 launches of each: the init's
+# proposals and the main solve with its JtJ.
+TRAIN_STEPS, TRAIN_K1_PER_STEP = 10, 2
 # nuScenes CAM_FRONT-like intrinsics of a 1600x900 frame
 NUSCENES_K = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]]
 LINEMOD_K = [[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
@@ -227,7 +263,9 @@ def kernel_counters():
     """Each kernel's launch counter: (module, attribute)."""
     from epropnp_tpu_torch.ops import dcn_kernel
     from epropnp_tpu_torch.ops.pnp import lm_kernel, rslm_kernel
-    return {'K1': (lm_kernel, 'launches'), 'K2': (rslm_kernel, 'launches'),
+    return {'K1': (lm_kernel, 'launches'),
+            'K1-train': (lm_kernel, 'launches_train'),
+            'K2': (rslm_kernel, 'launches'),
             'K2-legacy': (rslm_kernel, 'launches_legacy'),
             'K3-f32': (dcn_kernel, 'launches'),
             'K3-bf16': (dcn_kernel, 'launches_bf16'),
@@ -1263,6 +1301,412 @@ def reduced_size_agreement(torch, model, cfg, seed=7):
                 for a, b in zip(flat_cpu, flat64))
     return rel, rel64, float(close.mean()), float((close | flat).mean())
 
+def frac_close(a, b, floor=0.0):
+    """Share of rows whose every entry is within K1_RTOL * (|b| + floor)."""
+    return float(agree(a, b, K1_RTOL, floor).mean())
+
+
+def phase_i(torch, device):
+    """K1 in the training modes (trust region with projection bounds, with
+    and without the JtJ output) against its twin and an f64 twin."""
+    from epropnp_tpu_torch.ops.pnp import lm_kernel as k1
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    rows = []
+    for dof, b, n, iters, jtj, what in (
+            (6, 128, 16, 3, False, '6DoF training RSLM proposals'),
+            (6, 32, 512, 5, True, '6DoF training solve + JtJ'),
+            (4, 1536, 128, 10, True, 'Det training solve + JtJ')):
+        p = make_bounded_pnp_problem(b, n, 80 + n, dof, init_noise=(
+            (0.3, 0.5) if n == 16 else (0.05, 0.1)))
+        t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in p.items()}
+        args = (t['x3d'], t['x2d'], t['w2d'],
+                k1.camera_to_fxfycxcy(t['cams']).contiguous(), t['delta'],
+                t['pose0'])
+        kw = dict(bounds=t['bounds'], dof=dof, num_iter=iters,
+                  fast_mode=False, z_min=0.1, with_jtj=jtj)
+        run_k = lambda: k1.lm_solve_cuda(*args, **kw)  # noqa: E731
+        run_t = lambda: k1.lm_solve_reference(*args, **kw)  # noqa: E731
+        out_k, out_t = run_k(), run_t()
+        out_64 = k1.lm_solve_reference(
+            *(a.double() for a in args), **dict(
+                kw, bounds=t['bounds'].double()))
+        torch.cuda.synchronize()
+        ok_, ot, o64 = ([a.cpu().numpy() for a in o]
+                        for o in (out_k, out_t, out_64))
+        lo, hi = p['bounds'][:, None, :2], p['bounds'][:, None, 2:]
+        past = ((p['x2d'] < lo) | (p['x2d'] > hi)).any(-1)
+        row = dict(dof=dof, B=b, N=n, num_iter=iters, with_jtj=jtj,
+                   what=what, points_past_bounds=float(past.mean()),
+                   objects_past_bounds=float(past.any(-1).mean()),
+                   cost_agree=frac_close(ok_[1], ot[1]),
+                   pose_agree=frac_close(ok_[0], ot[0], 1e-2),
+                   kernel_vs_f64_cost_agree=frac_close(ok_[1], o64[1]),
+                   twin_f32_vs_f64_cost_agree=frac_close(ot[1], o64[1]),
+                   kernel_vs_f64_pose_agree=frac_close(ok_[0], o64[0], 1e-2),
+                   twin_f32_vs_f64_pose_agree=frac_close(ot[0], o64[0],
+                                                         1e-2),
+                   max_abs_cost_err=float(np.abs(ok_[1] - ot[1]).max()))
+        finite = all(np.isfinite(a).all() for a in ok_)
+        if jtj:
+            # an object whose points all lie past a bound has JtJ = 0
+            same = agree(ok_[0], ot[0], K1_RTOL, 1e-2)
+            rel = lambda a, b: np.abs(a - b).max((1, 2)) / np.maximum(  # noqa: E731,E501
+                np.abs(b).max((1, 2)), 1e-30)
+            row['jtj_zero_objects'] = float(
+                (np.abs(ot[2]).max((1, 2)) == 0).mean())
+            row['jtj_agree_where_poses_agree'] = float(
+                (rel(ok_[2], ot[2])[same] <= K1_JTJ_REL).mean())
+            row['jtj_max_rel_err_where_poses_agree'] = float(
+                rel(ok_[2], ot[2])[same].max())
+            row['twin_f32_vs_f64_jtj_max_rel_err'] = float(
+                rel(ot[2], o64[2])[same].max())
+        row['ms'] = time_ms(torch, run_k, iters=20)
+        row['plain_ms'] = time_ms(torch, run_t, iters=5)
+        # the JtJ output adds its lower triangle to the bytes written
+        bound, by = k1_bound(b, n, dof, iters + 1)
+        row['bound_ms'], row['bound_by'] = bound, by
+        print('phase i: K1 training mode ' + json.dumps(row))
+        assert finite, 'K1 non-finite in a training mode'
+        assert row['cost_agree'] >= K1_MIN_FRAC or (
+            row['kernel_vs_f64_cost_agree']
+            >= row['twin_f32_vs_f64_cost_agree'] - 0.005), \
+            f'K1 training mode: costs disagree at {(dof, b, n)}'
+        assert row['pose_agree'] >= K1_MIN_FRAC or (
+            row['kernel_vs_f64_pose_agree']
+            >= row['twin_f32_vs_f64_pose_agree'] - K1_POSE_F64_MARGIN), \
+            f'K1 training mode: poses disagree at {(dof, b, n)}'
+        if jtj:
+            assert row['jtj_agree_where_poses_agree'] >= K1_MIN_FRAC, \
+                f'K1 JtJ disagrees where the poses agree at {(dof, b, n)}'
+        rows.append(row)
+    main = rows[1]
+    return dict(name='lm_solve (K1), training modes', route='cuda',
+                source='epropnp_tpu_torch/csrc/lm_kernel.cu',
+                replaces='epropnp_tpu/ops/pnp/pallas_lm.py:396',
+                max_abs_err=max(r['max_abs_cost_err'] for r in rows),
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=None)
+
+
+def tiny_train_cfg():
+    """The JAX tests' tiny 6DoF training config (ResNet-18, 64x64 crops,
+    16x16 maps, 32 points, 32 Monte Carlo samples), K1 on."""
+    from epropnp_tpu_torch.sixdof.config import (
+        DataIterConfig, NetworkConfig, PnPConfig, SixDoFConfig, TrainConfig)
+    return SixDoFConfig(
+        network=NetworkConfig(back_layers_num=18),
+        dataiter=DataIterConfig(inp_res=64, out_res=16, sample_points=32),
+        pnp=PnPConfig(mc_samples=32, num_iter=2, lm_num_iter=2,
+                      rs_num_points=8, rs_num_proposals=2, rs_num_iter=1,
+                      use_pallas=True),
+        train=TrainConfig(lr_epoch_step=()))
+
+
+class DrawReplay:
+    """Records every random draw of a training step (the point subsample,
+    the init's sampler, the AMIS proposals) and replays them, cast to the
+    caller's dtype and device, so that runs on the card and on the CPU, in
+    f32 and f64, see the same random numbers."""
+
+    def __init__(self):
+        from epropnp_tpu_torch.ops.pnp import distributions
+        from epropnp_tpu_torch.ops.pnp import levenberg_marquardt as lm
+        from epropnp_tpu_torch.sixdof import train
+        self.sites = [(distributions, '_draw'), (lm, '_rand'),
+                      (train, 'sample_point_indices')]
+        self.real = {name: getattr(mod, name) for mod, name in self.sites}
+        self.draws, self.replay = [], None
+
+    def __enter__(self):
+        for mod, name in self.sites:
+            setattr(mod, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.sites:
+            setattr(mod, name, self.real[name])
+
+    def start_replay(self):
+        self.replay = list(self.draws)
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def draw(*args, **kwargs):
+            if name == 'sample_point_indices':
+                device = args[-1]
+                like = None
+            else:
+                like = args[2]
+            if self.replay is None:
+                out = real(*args, **kwargs)
+                self.draws.append(out.cpu())
+                return out
+            out = self.replay.pop(0)
+            if like is None:
+                return out.to(device)
+            return out.to(device=like.device, dtype=like.dtype)
+        return draw
+
+
+def train_step_snapshot(torch, cfg, model, batch, device):
+    """One training step of ``model`` on ``device``: the losses, the
+    gradient and the update of every parameter, the BatchNorm statistics
+    (numpy, float64)."""
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof import train as strain
+    dtype = next(model.parameters()).dtype
+    state = strain.TrainState(model, strain.make_optimizer(cfg, model))
+    step = strain.make_train_step(strain.build_epropnp(cfg), cfg,
+                                  torch.tensor(LINEMOD_K, dtype=dtype,
+                                               device=device))
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tb = strain.Batch(*(t.to(dtype) for t in smain.to_device(batch, device)))
+    metrics = step(state, tb, torch.Generator().manual_seed(0))
+    as_np = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    return dict(
+        losses={k: float(v) for k, v in metrics.items()},
+        grads={k: as_np(p.grad) for k, p in model.named_parameters()},
+        updates={k: as_np(p - before[k])
+                 for k, p in model.named_parameters()},
+        stats={k: as_np(v) for k, v in model.named_buffers()
+               if k.endswith(('running_mean', 'running_var'))})
+
+
+def leaf_rel(a, b):
+    """Per leaf: max|a - b| / max|b| (max over the leaves)."""
+    return max(float(np.abs(a[k] - b[k]).max()
+                     / max(np.abs(b[k]).max(), 1e-30)) for k in b)
+
+
+def rel_l2(a, b):
+    """Relative L2 distance over all leaves and that of the worst leaf."""
+    num = sum(float(np.sum((a[k] - b[k]) ** 2)) for k in b)
+    den = sum(float(np.sum(b[k] ** 2)) for k in b)
+    worst = max(float(np.linalg.norm(a[k] - b[k])
+                      / max(np.linalg.norm(b[k]), 1e-30)) for k in b)
+    return (num / max(den, 1e-60)) ** 0.5, worst
+
+
+def train_card_vs_cpu(torch, device):
+    """One reduced-size training step (``tiny_train_cfg``, 4 crops) on the
+    card and on the CPU, f32, TF32 off, the same weights and the same
+    draws; and the CPU in f64 as the yardstick of f32 rounding."""
+    import copy
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.utils.synthetic import make_sixdof_batch
+    cfg = tiny_train_cfg()
+    model, _, _ = smain.build_all(cfg, device='cpu')
+    smain.init_state(cfg, model, seed=3)
+    batch = tuple(make_sixdof_batch(3, 4, 64, 16).values())
+    with DrawReplay() as draws:
+        cpu = train_step_snapshot(torch, cfg, copy.deepcopy(model), batch,
+                                  torch.device('cpu'))
+        draws.start_replay()
+        card = train_step_snapshot(torch, cfg, copy.deepcopy(model).to(
+            device), batch, device)
+        draws.start_replay()
+        cpu64 = train_step_snapshot(torch, cfg, copy.deepcopy(model).double(),
+                                    batch, torch.device('cpu'))
+    losses = lambda r: {k: v for k, v in r['losses'].items()  # noqa: E731
+                        if k.startswith('loss')}
+    lc, l32, l64 = losses(card), losses(cpu), losses(cpu64)
+    rel = lambda a, b: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)  # noqa: E731,E501
+                           for k in b)
+    out = dict(losses_card_vs_cpu=rel(lc, l32),
+               losses_cpu_f32_vs_f64=rel(l32, l64),
+               stats_card_vs_cpu=leaf_rel(card['stats'], cpu['stats']),
+               stats_cpu_f32_vs_f64=leaf_rel(cpu['stats'], cpu64['stats']))
+    for what in ('grads', 'updates'):
+        out[f'{what}_card_vs_cpu'] = rel_l2(card[what], cpu[what])
+        out[f'{what}_card_vs_f64'] = rel_l2(card[what], cpu64[what])
+        out[f'{what}_cpu_f32_vs_f64'] = rel_l2(cpu[what], cpu64[what])
+    print('path j: reduced step, card vs CPU (f32, TF32 off, same draws); '
+          '[global, worst leaf] relative L2 for gradients and updates: '
+          + json.dumps(out) + f'; rule: losses {TRAIN_LOSS_REL:g} of the '
+          f'CPU\'s, BatchNorm statistics {TRAIN_STATS_REL:g}, gradients and '
+          f'updates no further from the f64 run than {TRAIN_F64_FACTOR:g}x '
+          'the CPU f32 run (+1e-5)')
+    print('path j: reduced step losses: card ' + json.dumps(card['losses'])
+          + ' CPU ' + json.dumps(cpu['losses']))
+    assert out['losses_card_vs_cpu'] <= TRAIN_LOSS_REL, \
+        'reduced step: losses differ'
+    assert out['stats_card_vs_cpu'] <= TRAIN_STATS_REL, \
+        'reduced step: BatchNorm statistics differ'
+    for what in ('grads', 'updates'):
+        for i, scope in enumerate(('global', 'worst leaf')):
+            assert out[f'{what}_card_vs_f64'][i] <= TRAIN_F64_FACTOR * out[
+                f'{what}_cpu_f32_vs_f64'][i] + 1e-5, \
+                f'reduced step: {what} ({scope}) further from f64 than f32'
+    return out
+
+
+def profile_train_step(torch, fn):
+    """One training step under ``torch.profiler``, its device time by kind:
+    the CDPN forward, the AMIS forward (K1 apart), K1, the backward (CDPN
+    and PnP graph), the optimizer; cuDNN/GEMM kernels over both passes;
+    the device-idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from epropnp_tpu_torch.models.cdpn import CDPN
+    from epropnp_tpu_torch.ops.pnp.epropnp import EProPnPBase
+    from epropnp_tpu_torch.sixdof.train import RMSprop
+    wrapped = {'cdpn forward': (CDPN, 'forward'),
+               'amis forward': (EProPnPBase, 'monte_carlo_forward'),
+               'optimizer': (RMSprop, 'step')}
+    saved = {}
+
+    def scoped(label, real):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return real(*args, **kwargs)
+        return call
+
+    for label, (cls, name) in wrapped.items():
+        saved[label] = getattr(cls, name)
+        setattr(cls, name, scoped(label, saved[label]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for label, (cls, name) in wrapped.items():
+            setattr(cls, name, saved[label])
+    try:
+        dev = lambda e: (getattr(e, 'device_time_total', None)  # noqa: E731
+                         or getattr(e, 'cuda_time_total', 0)) / 1e3
+        self_dev = lambda e: (getattr(e, 'self_device_time_total', None)  # noqa: E731,E501
+                              or getattr(e, 'self_cuda_time_total', 0)) / 1e3
+        ranges = dict.fromkeys(wrapped, 0.0)
+        for e in prof.events():
+            if e.name in ranges and str(e.device_type).endswith('CPU'):
+                ranges[e.name] += dev(e)
+        device_rows = [e for e in prof.key_averages()
+                       if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+        # the ranges (and torch's own Optimizer.step annotation) also show
+        # on the device timeline, as spans from their first kernel to their
+        # last: not kernels, but the device-time extent of each range
+        is_span = lambda e: (getattr(e, 'is_user_annotation', False)  # noqa: E731,E501
+                             or e.key in wrapped
+                             or e.key.startswith('Optimizer.'))
+        spans = {e.key: self_dev(e) for e in device_rows if is_span(e)}
+        kernels = [e for e in device_rows if not is_span(e)]
+        busy = sum(self_dev(e) for e in kernels)
+        share = lambda *keys: sum(  # noqa: E731
+            self_dev(e) for e in kernels
+            if any(k in e.key.lower() for k in keys))
+        k1 = share('lm_solve_kernel')
+        kinds = dict(
+            wall_ms=wall, device_busy_ms=busy,
+            device_idle_share=max(0.0, 1.0 - busy / wall),
+            cdpn_forward_ms=ranges['cdpn forward'],
+            amis_forward_without_k1_ms=ranges['amis forward'] - k1,
+            k1_ms=k1, optimizer_ms=ranges['optimizer'],
+            backward_and_rest_ms=busy - ranges['cdpn forward']
+            - ranges['amis forward'] - ranges['optimizer'],
+            cudnn_gemm_kernels_ms=share('conv', 'cudnn', 'xmma', 'gemm',
+                                        'cutlass', 'dgrad', 'wgrad',
+                                        'implicit', 'winograd', 'fft'),
+            kernel_launches=int(sum(e.count for e in kernels)),
+            range_spans_on_device_ms=spans)
+        top = sorted(kernels, key=self_dev, reverse=True)[:8]
+    except Exception as err:  # noqa: BLE001 - reading the trace only
+        print(f'path j: profile unreadable ({type(err).__name__}: {err})')
+        return None
+    print('path j: one training step by kind (ms): ' + json.dumps(kinds))
+    for e in top:
+        print(f'path j:   {self_dev(e):9.3f} ms  x{e.count:<5d} '
+              f'{e.key[:90]}')
+    return kinds
+
+
+def path_train(torch, device, steps=10, warmup=2, bs=32):
+    """``sixdof.main.train_loop`` at ``SixDoFConfig.epropnp_basic()`` width
+    (CDPN-34, 32 crops of 256x256, K1 on) on seeded synthetic batches:
+    ``steps`` steps, the first ``warmup`` untimed."""
+    import dataclasses
+    import tempfile
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof import train as strain
+    from epropnp_tpu_torch.sixdof.config import SixDoFConfig
+    from epropnp_tpu_torch.utils.synthetic import SyntheticSixDoFDataset
+    base = SixDoFConfig.epropnp_basic()
+    cfg = dataclasses.replace(
+        base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
+        train=dataclasses.replace(base.train, begin_epoch=0, end_epoch=1,
+                                  train_batch_size=bs))
+    t0 = time.perf_counter()
+    data = SyntheticSixDoFDataset(steps * bs, 256, 64, seed=0)
+    print(f'path j: {steps * bs} synthetic samples made in '
+          f'{time.perf_counter() - t0:.1f} s')
+    stamps, metrics = [], []
+
+    def on_step(epoch, i, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        state = smain.train_loop(cfg, data, save_dir, device=device,
+                                 log_interval=steps, on_step=on_step)
+        total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(metrics):
+        print(f'path j: step {i}{" (warm-up)" if i < warmup else ""}: '
+              + json.dumps({k: round(v, 6) for k, v in m.items()}))
+    timed = steps - warmup
+    ms = (stamps[-1] - stamps[warmup - 1]) / timed * 1e3
+    skipped = int(sum(m['skipped'] for m in metrics))
+    print('path j: ' + json.dumps(dict(
+        steps=steps, timed_steps=timed, ms_per_step=ms,
+        samples_per_s=bs / ms * 1e3, skipped_steps=skipped,
+        loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak)))
+    assert len(metrics) == steps, 'train_loop: wrong number of steps'
+    assert metrics[0]['skipped'] == 0, 'train_loop: first step skipped'
+    assert all(np.isfinite(v) for m in metrics for v in m.values()), \
+        'train_loop: non-finite loss'
+    fresh, _, _ = smain.build_all(cfg, device=device)
+    smain.init_state(cfg, fresh, seed=0)
+    moved = [k for k, p in state.model.named_parameters()
+             if not torch.equal(p, dict(fresh.named_parameters())[k])]
+    print(f'path j: {len(moved)} of {len(list(fresh.parameters()))} '
+          'parameter tensors moved')
+    assert moved, 'train_loop: the parameters did not change'
+    # one more step, profiled (its launches are outside the counted run)
+    step = strain.make_train_step(strain.build_epropnp(cfg), cfg,
+                                  torch.tensor(LINEMOD_K, device=device))
+    batch = smain.to_device(next(data.batches(bs, seed=9)), device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    return dict(ms=ms, steps=steps, skipped=skipped,
+                profile=lambda: profile_train_step(
+                    torch, lambda: step(state, batch, gen)))
+
+
+def path_fit_identity(torch, device):
+    """The reduced ``fit_identity`` demo (8192 poses, batches of 256, 2
+    epochs, the full EProPnP6DoF stack): the loss must fall."""
+    from epropnp_tpu_torch.demo import fit_identity
+    res = fit_identity.run(n_data=8192, batch_size=256, n_epoch=2,
+                           device=device, verbose=False)
+    losses = np.array(res['losses'])
+    first, last = np.nanmean(losses[:8]), np.nanmean(losses[-8:])
+    print('path k: fit_identity reduced ' + json.dumps(dict(
+        steps=res['steps'], train_s=res['train_s'],
+        ms_per_step=res['train_s'] / res['steps'] * 1e3,
+        skipped=res['skipped'], loss_first8=float(first),
+        loss_last8=float(last), mean_trans_err=res['mean_trans_err'],
+        mean_orient_err=res['mean_orient_err'])))
+    assert last < first, 'fit_identity: the loss did not fall'
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1297,7 +1741,8 @@ def main() -> int:
     # are not the main run's
     for name, phase in (('a', phase_a), ('b', phase_b),
                         ('b+', phase_b_legacy), ('e', phase_e),
-                        ('e+', phase_e_variants), ('f', phase_f)):
+                        ('e+', phase_e_variants), ('f', phase_f),
+                        ('i', phase_i), ('j card vs CPU', train_card_vs_cpu)):
         try:
             entries[name] = phase(torch, device)
         except Exception:  # noqa: BLE001 - report every phase, then fail
@@ -1311,11 +1756,14 @@ def main() -> int:
              ('b+ entry', lambda: path_legacy_entry(torch, device)),
              ('g', lambda: phase_g(torch, device)),
              ('h', lambda: phase_h(torch, device)),
-             ('h bf16 gather', lambda: phase_h_bf16(torch, device)))
+             ('h bf16 gather', lambda: phase_h_bf16(torch, device)),
+             ('j', lambda: path_train(torch, device, TRAIN_STEPS)),
+             ('k', lambda: path_fit_identity(torch, device)))
     totals = dict.fromkeys(kernel_counters(), 0)
+    results = {}
     for name, fn in paths:
         try:
-            counts = drive(torch, fn)
+            counts = drive(torch, lambda: results.__setitem__(name, fn()))
         except Exception:  # noqa: BLE001
             traceback.print_exc()
             failed.append(name)
@@ -1323,9 +1771,26 @@ def main() -> int:
         print(f'launches in path {name}: {json.dumps(counts)}')
         for key, value in counts.items():
             totals[key] += value
+        if name == 'j':
+            others = {k: v for k, v in counts.items()
+                      if k != 'K1-train' and v}
+            if counts['K1-train'] != TRAIN_K1_PER_STEP * TRAIN_STEPS \
+                    or others:
+                print(f'path j: K1 training-mode launches '
+                      f'{counts["K1-train"]}, expected '
+                      f'{TRAIN_K1_PER_STEP * TRAIN_STEPS}; other kernels '
+                      f'{others}', file=sys.stderr)
+                failed.append('j: K1 not launched twice per step')
+    if 'j' in results:
+        try:
+            results['j']['profile']()
+        except Exception:  # noqa: BLE001
+            traceback.print_exc()
+            failed.append('j profile')
     print('launches on the main run: ' + json.dumps(totals))
     variants = entries.get('e+') or [None, None]
-    rows = {'K1': entries.get('a'), 'K2': entries.get('b'),
+    rows = {'K1': entries.get('a'), 'K1-train': entries.get('i'),
+            'K2': entries.get('b'),
             'K2-legacy': entries.get('b+'), 'K3-f32': entries.get('e'),
             'K3-bf16': variants[0], 'K3-int8': variants[1]}
     for key, row in rows.items():

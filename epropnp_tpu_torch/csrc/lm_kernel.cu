@@ -5,11 +5,12 @@
 // every object, a fixed number of steps: projection, Huber cost + IRLS
 // rescale, analytic Jacobian, the JtJ and gradient sums, a damped Cholesky
 // solve, the tangent pose update and, outside fast mode, the Ceres-style
-// trust-region accept/reject. Scope: fast mode (pure Gauss-Newton) at dof
-// 6 or 4, with or without per-object projection bounds (the 6DoF and Det
-// serving paths), and the trust region at dof 6 without bounds (the bench
-// path). The Pallas kernel's with_jtj output, and dof 4 or bounds in
-// trust-region mode, are not ported yet.
+// trust-region accept/reject. Scope: every mode of lm_solve_pallas that a
+// caller reaches: fast mode (pure Gauss-Newton) or the trust region, at
+// dof 6 or 4, with or without per-object projection bounds, with or
+// without the undamped JtJ output (the pose covariance of the Monte Carlo
+// forward). The Pallas kernel's cost_only mode has no caller outside
+// pallas_lm.py and is not ported.
 //
 // What bounds it on an H100: per object the work is a reduction over N
 // points followed by a few hundred dependent scalar flops (Cholesky,
@@ -44,16 +45,15 @@ __device__ __forceinline__ void warp_allreduce(float* v) {
   }
 }
 
-template <int DOF, bool FAST, bool BOUNDS>
+template <int DOF, bool FAST, bool BOUNDS, bool JTJ>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
                 const float* __restrict__ w2d, const float* __restrict__ cam,
                 const float* __restrict__ delta,
                 const float* __restrict__ bounds,
                 const float* __restrict__ pose0, float* __restrict__ pose_out,
-                float* __restrict__ cost_out, int B, int N, LMParams prm) {
-  static_assert(FAST || (DOF == 6 && !BOUNDS),
-                "the trust region runs dof 6 without bounds");
+                float* __restrict__ cost_out, float* __restrict__ jtj_out,
+                int B, int N, LMParams prm) {
   constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -92,20 +92,25 @@ lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
   float cost, jtj[kT], g[kD];
 
   if (FAST) {
-    // pure Gauss-Newton; the cost is that at the pose before the last
-    // update (the reference's loop carry)
+    // pure Gauss-Newton; the cost and JtJ are those at the pose before the
+    // last update (the reference's loop carry), zero after no iteration
     cost = 0.f;
+#pragma unroll
+    for (int i = 0; i < kT; ++i) jtj[i] = 0.f;
     for (int it = 0; it < prm.num_iter; ++it) {
       ev(pose, cost, jtj, g);
-      float step[kD], pose_new[kP];
+      float damped[kT], step[kD], pose_new[kP];
 #pragma unroll
-      for (int a = 0; a < kD; ++a) jtj[a * (a + 1) / 2 + a] += prm.eps;
-      chol_solve<DOF>(jtj, g, step);
+      for (int i = 0; i < kT; ++i) damped[i] = jtj[i];
+#pragma unroll
+      for (int a = 0; a < kD; ++a) damped[a * (a + 1) / 2 + a] += prm.eps;
+      chol_solve<DOF>(damped, g, step);
       pose_add<DOF>(pose, step, pose_new);
 #pragma unroll
       for (int i = 0; i < kP; ++i) pose[i] = pose_new[i];
     }
   } else {
+    // the JtJ kept by the trust region is that at the accepted pose
     ev(pose, cost, jtj, g);
     float radius = prm.initial_trust_region_radius, decrease = 2.f;
     for (int it = 0; it < prm.num_iter; ++it)
@@ -117,62 +122,77 @@ lm_solve_kernel(const float* __restrict__ x3d, const float* __restrict__ x2d,
 #pragma unroll
     for (int i = 0; i < kP; ++i) pose_out[b * kP + i] = pose[i];
     cost_out[b] = cost;
+    if (JTJ) {
+#pragma unroll
+      for (int i = 0; i < kT; ++i) jtj_out[b * kT + i] = jtj[i];
+    }
   }
 }
 
-template <int DOF, bool FAST, bool BOUNDS>
+template <int DOF, bool FAST, bool BOUNDS, bool JTJ>
 void launch(const float* x3d, const float* x2d, const float* w2d,
             const float* cam, const float* delta, const float* bounds,
-            const float* pose0, float* pose_out, float* cost_out, int B,
-            int N, const LMParams& prm, cudaStream_t stream) {
+            const float* pose0, float* pose_out, float* cost_out,
+            float* jtj_out, int B, int N, const LMParams& prm,
+            cudaStream_t stream) {
   const int grid = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lm_solve_kernel<DOF, FAST, BOUNDS>
+  lm_solve_kernel<DOF, FAST, BOUNDS, JTJ>
       <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-          x3d, x2d, w2d, cam, delta, bounds, pose0, pose_out, cost_out, B, N,
-          prm);
+          x3d, x2d, w2d, cam, delta, bounds, pose0, pose_out, cost_out,
+          jtj_out, B, N, prm);
+}
+
+// Picks one of the 16 instances (dof x fast x bounds x jtj) at run time.
+template <int DOF, bool... Flags>
+void dispatch(const bool* flags, const float* x3d, const float* x2d,
+              const float* w2d, const float* cam, const float* delta,
+              const float* bounds, const float* pose0, float* pose_out,
+              float* cost_out, float* jtj_out, int B, int N,
+              const LMParams& prm, cudaStream_t stream) {
+  if constexpr (sizeof...(Flags) == 3) {
+    launch<DOF, Flags...>(x3d, x2d, w2d, cam, delta, bounds, pose0,
+                          pose_out, cost_out, jtj_out, B, N, prm, stream);
+  } else {
+    auto next = flags[sizeof...(Flags)]
+                    ? &dispatch<DOF, Flags..., true>
+                    : &dispatch<DOF, Flags..., false>;
+    next(flags, x3d, x2d, w2d, cam, delta, bounds, pose0, pose_out,
+         cost_out, jtj_out, B, N, prm, stream);
+  }
 }
 
 }  // namespace
 }  // namespace epropnp
 
 // Plain C entry point (loaded with ctypes). ``bounds`` is (B, 4)
-// [lb_u, lb_v, ub_u, ub_v] or null. Returns the cudaError_t of the launch;
-// 0 means the kernel was queued on ``stream``; an option outside the
-// kernel's scope returns cudaErrorInvalidValue without a launch.
+// [lb_u, lb_v, ub_u, ub_v] or null; ``jtj_out`` is (B, dof (dof + 1) / 2),
+// the undamped JtJ lower triangle row by row, or null for no JtJ. Returns
+// the cudaError_t of the launch; 0 means the kernel was queued on
+// ``stream``; a dof other than 4 or 6 returns cudaErrorInvalidValue
+// without a launch.
 extern "C" int epropnp_lm_solve(
     const float* x3d, const float* x2d, const float* w2d, const float* cam,
     const float* delta, const float* bounds, const float* pose0,
-    float* pose_out, float* cost_out, int B, int N, int dof, int fast_mode,
-    int num_iter, float z_min, float eps, float min_lm_diagonal,
-    float max_lm_diagonal, float min_relative_decrease,
-    float initial_trust_region_radius, float max_trust_region_radius,
-    void* stream) {
+    float* pose_out, float* cost_out, float* jtj_out, int B, int N, int dof,
+    int fast_mode, int num_iter, float z_min, float eps,
+    float min_lm_diagonal, float max_lm_diagonal,
+    float min_relative_decrease, float initial_trust_region_radius,
+    float max_trust_region_radius, void* stream) {
   if (B <= 0) return 0;
   epropnp::LMParams prm{num_iter, z_min, eps, min_lm_diagonal,
                         max_lm_diagonal, min_relative_decrease,
                         initial_trust_region_radius,
                         max_trust_region_radius};
   auto s = static_cast<cudaStream_t>(stream);
-  const bool bnd = bounds != nullptr;
-#define EPROPNP_LM_LAUNCH(D, F, BD)                                      \
-  epropnp::launch<D, F, BD>(x3d, x2d, w2d, cam, delta, bounds, pose0,    \
-                            pose_out, cost_out, B, N, prm, s)
-  if (!fast_mode) {
-    if (dof != 6 || bnd) return (int)cudaErrorInvalidValue;
-    EPROPNP_LM_LAUNCH(6, false, false);
-  } else if (dof == 6) {
-    if (bnd)
-      EPROPNP_LM_LAUNCH(6, true, true);
-    else
-      EPROPNP_LM_LAUNCH(6, true, false);
-  } else if (dof == 4) {
-    if (bnd)
-      EPROPNP_LM_LAUNCH(4, true, true);
-    else
-      EPROPNP_LM_LAUNCH(4, true, false);
-  } else {
+  const bool flags[3] = {fast_mode != 0, bounds != nullptr,
+                         jtj_out != nullptr};
+  if (dof == 6)
+    epropnp::dispatch<6>(flags, x3d, x2d, w2d, cam, delta, bounds, pose0,
+                         pose_out, cost_out, jtj_out, B, N, prm, s);
+  else if (dof == 4)
+    epropnp::dispatch<4>(flags, x3d, x2d, w2d, cam, delta, bounds, pose0,
+                         pose_out, cost_out, jtj_out, B, N, prm, s);
+  else
     return (int)cudaErrorInvalidValue;
-  }
-#undef EPROPNP_LM_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,9 @@
 //   * with BOUNDS the projection is clamped into the per-object box
 //     [lb_u, ub_u] x [lb_v, ub_v] before the residual and the Jacobian;
 //   * with CLIP (trust-region mode) Jacobian rows are zeroed where the z
-//     clamp is active. Fast mode keeps them, also at an active bound clamp.
+//     clamp is active (both rows) or where a bound clamp is active (that
+//     row: u strictly inside (lb_u, ub_u) keeps the u row). Fast mode keeps
+//     them, also at an active bound clamp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -142,16 +144,19 @@ __device__ __forceinline__ float point_cost(const float* r, const float* t,
 }
 
 // Adds one point's cost, JtJ lower triangle (row-major) and gradient.
-// BOUNDS (fast mode only) clamps u, v into the object's box; the Jacobian
-// keeps its rows there, as the reference's fast Gauss-Newton does.
+// BOUNDS clamps u, v into the object's box. With CLIP the Jacobian row of
+// a clamped coordinate is zeroed (pallas_lm.py _evaluate, clip_jac); fast
+// mode keeps it, as the reference's fast Gauss-Newton does.
 template <bool CLIP, int DOF = 6, bool BOUNDS = false>
 __device__ __forceinline__ void accumulate_point(
     const float* r, const float* t, const ObjParams& o, float z_min,
     const Bounds& bnd, float x, float y, float z, float ut, float vt,
     float wu, float wv, float& cost, float* jtj, float* g) {
-  static_assert(!(CLIP && BOUNDS), "bounds are run in fast mode only");
   Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+  float in_u = 1.f, in_v = 1.f;
   if constexpr (BOUNDS) {
+    in_u = (p.u > bnd.lb_u && p.u < bnd.ub_u) ? 1.f : 0.f;
+    in_v = (p.v > bnd.lb_v && p.v < bnd.ub_v) ? 1.f : 0.f;
     p.u = fminf(fmaxf(p.u, bnd.lb_u), bnd.ub_u);
     p.v = fminf(fmaxf(p.v, bnd.lb_v), bnd.ub_v);
   }
@@ -162,10 +167,12 @@ __device__ __forceinline__ void accumulate_point(
   const float rho = sqrtf(fminf(o.delta / fmaxf(s_sqrt, 1e-10f), 1.f));
 
   const float live = (!CLIP || p.zc_raw >= z_min) ? 1.f : 0.f;
-  const float du0 = o.fx / p.zc * live;
-  const float du2 = (o.cx - p.u) / p.zc * live;
-  const float dv1 = o.fy / p.zc * live;
-  const float dv2 = (o.cy - p.v) / p.zc * live;
+  const float live_u = CLIP ? live * in_u : live;
+  const float live_v = CLIP ? live * in_v : live;
+  const float du0 = o.fx / p.zc * live_u;
+  const float du2 = (o.cx - p.u) / p.zc * live_u;
+  const float dv1 = o.fy / p.zc * live_v;
+  const float dv2 = (o.cy - p.v) / p.zc * live_v;
   const float swu = wu * rho, swv = wv * rho;
 
   float ju[DOF], jv[DOF];

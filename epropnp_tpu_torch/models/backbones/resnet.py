@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ...ops.deform_conv import Conv2d, DeformConv
+from ..norm import BatchNorm2d
 
 # depth -> (block, stage_sizes, stage_channels(last = feat dim))
 resnet_spec = {
@@ -33,9 +34,9 @@ resnet_spec = {
 }
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
+def _bn(channels: int) -> BatchNorm2d:
     # eps 1e-5 and flax momentum 0.9 (= torch momentum 0.1)
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..norm import BatchNorm2d
+
 
 class RotHead(nn.Module):
 
@@ -27,11 +29,11 @@ class RotHead(nn.Module):
             layers += [
                 nn.ConvTranspose2d(cin, num_filters, 3, 2, padding=1,
                                    output_padding=1, bias=False),
-                nn.BatchNorm2d(num_filters, eps=1e-5), nn.ReLU(inplace=True)]
+                BatchNorm2d(num_filters, eps=1e-5), nn.ReLU(inplace=True)]
             for _ in range(2):
                 layers += [
                     nn.Conv2d(num_filters, num_filters, 3, 1, 1, bias=False),
-                    nn.BatchNorm2d(num_filters, eps=1e-5),
+                    BatchNorm2d(num_filters, eps=1e-5),
                     nn.ReLU(inplace=True)]
         self.features = nn.Sequential(*layers)
         self.out_layer = nn.Conv2d(num_filters, output_dim, 1, bias=True)

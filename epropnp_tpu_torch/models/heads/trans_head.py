@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..norm import BatchNorm2d
+
 
 class TransHead(nn.Module):
 
@@ -24,7 +26,7 @@ class TransHead(nn.Module):
         for i in range(num_layers):
             cin = in_channels if i == 0 else num_filters
             layers += [nn.Conv2d(cin, num_filters, 3, 1, 1, bias=False),
-                       nn.BatchNorm2d(num_filters, eps=1e-5),
+                       BatchNorm2d(num_filters, eps=1e-5),
                        nn.ReLU(inplace=True)]
         self.features = nn.Sequential(*layers)
         flat = num_filters * feat_hw[0] * feat_hw[1]

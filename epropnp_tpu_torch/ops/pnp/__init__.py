@@ -17,4 +17,10 @@ from .common import (  # noqa: F401
 from .camera import PerspectiveCamera  # noqa: F401
 from .cost_fun import AdaptiveHuberPnPCost, HuberPnPCost, huber_kernel  # noqa: F401
 from .levenberg_marquardt import LMSolver, RSLMSolver  # noqa: F401
-from .epropnp import EProPnP4DoF, EProPnPBase  # noqa: F401
+from .epropnp import EProPnP4DoF, EProPnP6DoF, EProPnPBase  # noqa: F401
+from .distributions import (  # noqa: F401
+    AngularCentralGaussian,
+    MultivariateStudentT,
+    VonMisesUniformMix,
+    cholesky_wrapper,
+)

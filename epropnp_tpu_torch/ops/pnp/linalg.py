@@ -67,6 +67,11 @@ def solve_spd_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tri_solve_upper_t(l, tri_solve_lower(l, b))
 
 
+def cho_solve_small(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve given a precomputed lower Cholesky factor."""
+    return tri_solve_upper_t(l, tri_solve_lower(l, b))
+
+
 def inv_spd_small(a: torch.Tensor) -> torch.Tensor:
     """Inverse of SPD ``a`` via Cholesky with identity right-hand side."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
@@ -100,3 +105,12 @@ def solve_3x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.ndim == a.ndim - 1:
         return torch.einsum('...ij,...j->...i', inv, b)
     return inv @ b
+
+
+def det_small(a: torch.Tensor) -> torch.Tensor:
+    """Determinant of SPD ``a`` via the Cholesky diagonal product."""
+    l = cholesky_small(a)
+    d = l[..., 0, 0]
+    for i in range(1, a.shape[-1]):
+        d = d * l[..., i, i]
+    return d * d

@@ -8,12 +8,11 @@ kernel term by term (``_evaluate`` below mirrors ``pnp_common.cuh``), so
 the two differ only in summation order.
 
 Scope: zero-skew pinhole cameras given as (B, 4) ``[fx, fy, cx, cy]`` and
-per-object Huber deltas. The twin takes dof 4 and 6, projection bounds
-(B, 4) ``[lb_u, lb_v, ub_u, ub_v]`` and the final JtJ (``with_jtj``) that
-forms the pose covariance, in both modes. The kernel runs fast mode at dof
-6 or 4, with or without bounds (the 6DoF and Det serving paths), and the
-trust region at dof 6 without bounds (the bench path); it raises on the
-rest.
+per-object Huber deltas. Both the kernel and the twin run fast mode and
+the trust region at dof 4 and 6, with or without projection bounds (B, 4)
+``[lb_u, lb_v, ub_u, ub_v]``, with or without the final JtJ
+(``with_jtj``) that forms the pose covariance: every mode of the Pallas
+kernel that a caller reaches (its ``cost_only`` has no caller).
 """
 
 from __future__ import annotations
@@ -23,8 +22,13 @@ from typing import Tuple
 
 import torch
 
-# Launches of the CUDA kernel, counted by :func:`lm_solve_cuda` alone.
+# Launches of the CUDA kernel, counted by :func:`lm_solve_cuda` alone:
+# ``launches`` in the serving modes (fast mode; the trust region at dof 6
+# without bounds or JtJ), ``launches_train`` in the modes that only the
+# training paths run (the trust region with bounds or at dof 4, and any
+# launch with the JtJ output).
 launches = 0
+launches_train = 0
 
 
 def camera_to_fxfycxcy(cam_mats: torch.Tensor) -> torch.Tensor:
@@ -196,14 +200,13 @@ def _split_points(x3d, x2d, w2d):
             w2d[..., 0], w2d[..., 1])
 
 
-def _jtj_matrix(tri_cols, dof):
-    """Lower-triangle columns (B, 1) -> symmetric (B, dof, dof)."""
-    b = tri_cols[0].shape[0]
-    jtj = tri_cols[0].new_zeros((b, dof, dof))
-    for n, (a, c) in enumerate(_tri(dof)):
-        jtj[:, a, c] = tri_cols[n][:, 0]
-        jtj[:, c, a] = tri_cols[n][:, 0]
-    return jtj
+def _jtj_matrix(tri, dof):
+    """Lower triangle (B, dof (dof + 1) / 2), row by row -> symmetric
+    (B, dof, dof), in one gather."""
+    pos = {t: n for n, t in enumerate(_tri(dof))}
+    idx = torch.tensor([pos[(max(a, c), min(a, c))] for a in range(dof)
+                        for c in range(dof)], device=tri.device)
+    return tri[:, idx].reshape(tri.shape[0], dof, dof)
 
 
 def lm_solve_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
@@ -251,20 +254,20 @@ def lm_solve_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
         pose, cost, jtj = state[0], state[1], state[2]
     out = (torch.cat(pose, 1), cost[:, 0])
     if with_jtj:
-        out = out + (_jtj_matrix(jtj, dof),)
+        out = out + (_jtj_matrix(torch.cat(jtj, 1), dof),)
     return out
 
 
-def check_kernel_scope(name, dof, bounds=None, with_jtj=False,
-                       fast_mode=True):
-    """Raise on the options the K1 CUDA kernel does not run (yet)."""
-    if with_jtj or dof not in (4, 6) or (
-            not fast_mode and (dof != 6 or bounds is not None)):
+def check_kernel_scope(name, dof):
+    """Raise on the options the K1 CUDA kernel does not run."""
+    if dof not in (4, 6):
         raise NotImplementedError(
-            f'{name}: the CUDA kernel runs fast mode at dof 6 or 4 with or '
-            'without bounds, and the trust region at dof 6 without bounds, '
-            f'never JtJ; got dof={dof}, bounds={bounds is not None}, '
-            f'fast_mode={fast_mode}, with_jtj={with_jtj}')
+            f'{name}: the CUDA kernel runs dof 4 and 6; got dof={dof}')
+
+
+def is_training_mode(dof, bounds=None, with_jtj=False, fast_mode=True):
+    """True for the modes counted in ``launches_train``."""
+    return with_jtj or (not fast_mode and (dof != 6 or bounds is not None))
 
 
 def _check(name, t, shape, device):
@@ -290,10 +293,10 @@ def lm_solve_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
                   max_trust_region_radius: float = 1e16,
                   with_jtj: bool = False) -> Tuple[torch.Tensor, ...]:
     """Launch the K1 kernel on CUDA tensors (f32, contiguous)."""
-    global launches
+    global launches, launches_train
     from ...kernels import check_launch, load_library
 
-    check_kernel_scope('lm_solve_cuda', dof, bounds, with_jtj, fast_mode)
+    check_kernel_scope('lm_solve_cuda', dof)
     b, n, _ = x3d.shape
     device = x3d.device
     if device.type != 'cuda':
@@ -310,20 +313,28 @@ def lm_solve_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
     lib = load_library()
     pose = torch.empty((b, pose_dim), dtype=torch.float32, device=device)
     cost = torch.empty((b,), dtype=torch.float32, device=device)
+    tri = (torch.empty((b, dof * (dof + 1) // 2), dtype=torch.float32,
+                       device=device) if with_jtj else None)
     ptr = lambda t: ctypes.c_void_p(  # noqa: E731
         None if t is None else t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.epropnp_lm_solve(
             ptr(x3d), ptr(x2d), ptr(w2d), ptr(cam_fxfycxcy), ptr(delta),
-            ptr(bounds), ptr(pose_init), ptr(pose), ptr(cost), b, n, dof,
+            ptr(bounds), ptr(pose_init), ptr(pose), ptr(cost), ptr(tri), b,
+            n, dof,
             int(fast_mode), num_iter, z_min, eps, min_lm_diagonal,
             max_lm_diagonal, min_relative_decrease,
             initial_trust_region_radius,
             max_trust_region_radius, ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_lm_solve')
-    launches += 1
-    return pose, cost
+    if is_training_mode(dof, bounds, with_jtj, fast_mode):
+        launches_train += 1
+    else:
+        launches += 1
+    if not with_jtj:
+        return pose, cost
+    return pose, cost, _jtj_matrix(tri, dof)
 
 
 def lm_solve(x3d, *args, **kwargs) -> Tuple[torch.Tensor, ...]:

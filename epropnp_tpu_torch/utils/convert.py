@@ -2,7 +2,9 @@
 
 ``cdpn_state_dict`` and ``det_state_dict`` are the exact inverses of
 ``epropnp_tpu/utils/torch_convert.py::cdpn_variables`` and
-``::det_model_variables``: they take the flax variables of the JAX models
+``::det_model_variables``; ``cdpn_variables`` maps the port's CDPN state
+back to the flax names (a training state, or its gradients, compared with
+the JAX package's). The first two take the flax variables of the JAX models
 as nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``)
 and return the state dicts of the port's ``CDPN`` and ``EProPnPDet``,
 whose keys are the reference checkpoints'. Layout rules (the converter's,
@@ -145,6 +147,75 @@ def cdpn_state_dict(variables: Dict, depth: int = 34,
                 feat_hw=feat_hw)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+def _flax_bn(params: Dict, stats: Dict, sd: Dict, name: str,
+             flax_name: str) -> None:
+    params[flax_name] = {'scale': sd[f'{name}.weight'],
+                         'bias': sd[f'{name}.bias']}
+    if f'{name}.running_mean' in sd:
+        stats[flax_name] = {'mean': sd[f'{name}.running_mean'],
+                            'var': sd[f'{name}.running_var']}
+
+
+def cdpn_variables(sd: Dict[str, np.ndarray], depth: int = 34) -> Dict:
+    """The port's ``CDPN`` state dict (numpy) -> flax CDPN variables
+    ``{'params': ..., 'batch_stats': ...}`` (the inverse of
+    :func:`cdpn_state_dict`, and the counterpart of
+    ``epropnp_tpu/utils/torch_convert.py::cdpn_variables``). Entries
+    without running statistics (a dict of gradients) give no
+    ``batch_stats`` for their BatchNorms."""
+    block_name, stage_sizes, _ = resnet_spec[depth]
+    conv = lambda name: {'kernel': np.ascontiguousarray(  # noqa: E731
+        np.transpose(sd[f'{name}.weight'], (2, 3, 1, 0)))}
+    dense = lambda name: {'kernel': np.ascontiguousarray(  # noqa: E731
+        sd[f'{name}.weight'].T), 'bias': sd[f'{name}.bias']}
+
+    bp, bs = {'conv1': conv('backbone.conv1')}, {}
+    _flax_bn(bp, bs, sd, 'backbone.bn1', 'bn1')
+    n_convs = 2 if block_name == 'basic' else 3
+    for stage, n_blocks in enumerate(stage_sizes, start=1):
+        for i in range(n_blocks):
+            t, f = f'backbone.layer{stage}.{i}', f'layer{stage}_block{i}'
+            p, st = {}, {}
+            for j in range(n_convs):
+                p[f'Conv_{j}'] = conv(f'{t}.conv{j + 1}')
+                _flax_bn(p, st, sd, f'{t}.bn{j + 1}', f'BatchNorm_{j}')
+            if f'{t}.downsample.0.weight' in sd:
+                p['downsample_conv'] = conv(f'{t}.downsample.0')
+                _flax_bn(p, st, sd, f'{t}.downsample.1',
+                         f'BatchNorm_{n_convs}')
+            bp[f], bs[f] = p, st
+
+    rp, rs, h = {}, {}, 'rot_head_net.'
+    for i in range(3):
+        w = sd[f'{h}features.{9 * i}.weight']
+        rp[f'ConvTranspose_{i}'] = {'kernel': np.ascontiguousarray(
+            np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1)))}
+        for j, t_idx in enumerate((9 * i + 1, 9 * i + 4, 9 * i + 7)):
+            _flax_bn(rp, rs, sd, f'{h}features.{t_idx}',
+                     f'BatchNorm_{3 * i + j}')
+        rp[f'Conv_{2 * i}'] = conv(f'{h}features.{9 * i + 3}')
+        rp[f'Conv_{2 * i + 1}'] = conv(f'{h}features.{9 * i + 6}')
+    rp['out_layer'] = conv(f'{h}out_layer')
+    rp['out_layer']['bias'] = sd[f'{h}out_layer.bias']
+    rp['scale_branch'] = dense(f'{h}scale_branch')
+
+    tp, ts, h = {}, {}, 'trans_head_net.'
+    for i in range(3):
+        tp[f'Conv_{i}'] = conv(f'{h}features.{3 * i}')
+        _flax_bn(tp, ts, sd, f'{h}features.{3 * i + 1}', f'BatchNorm_{i}')
+    lin0 = dense(f'{h}linears.0')
+    c = tp['Conv_2']['kernel'].shape[-1]
+    side = math.isqrt(lin0['kernel'].shape[0] // c)
+    lin0['kernel'] = np.ascontiguousarray(lin0['kernel'].reshape(
+        c, side, side, -1).transpose(1, 2, 0, 3).reshape(side * side * c, -1))
+    tp['Dense_0'] = lin0
+    tp['Dense_1'] = dense(f'{h}linears.2')
+    tp['Dense_2'] = dense(f'{h}linears.4')
+    return {'params': {'backbone': bp, 'rot_head': rp, 'trans_head': tp},
+            'batch_stats': {'backbone': bs, 'rot_head': rs,
+                            'trans_head': ts}}
 
 
 # ------------------------------------------------------------------ Det

@@ -80,3 +80,86 @@ def make_pnp_problem(b: int, n: int, seed: int, dof: int = 6,
     return dict(x3d=x3d, x2d=x2d, w2d=w2d,
                 cams=np.broadcast_to(k, (b, 3, 3)).copy(), pose=pose,
                 pose0=pose0)
+
+
+def make_sixdof_batch(seed: int, bs: int = 32, inp_res: int = 256,
+                      out_res: int = 64) -> dict:
+    """One seeded synthetic 6DoF training batch of float32 numpy arrays,
+    the fields of ``sixdof.train.Batch``: normal images, uniform noc
+    targets in [-0.5, 0.5], a full loss mask, normal trans-head targets,
+    uniformly random rotations with translations 0.5-1 m in front of the
+    camera, crops centred at 200-400 px of scale 100-200 px, and object
+    extents 0.05-0.15 m (``tests/test_sixdof_train.py::make_batch`` at any
+    size, from numpy alone)."""
+    r = np.random.default_rng(seed)
+    q = r.normal(size=(bs, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q *= np.where(q[:, :1] < 0, -1.0, 1.0)
+    t = r.uniform([-.1, -.1, .5], [.1, .1, 1.0], (bs, 3))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(
+        inp=f32(r.normal(size=(bs, inp_res, inp_res, 3))),
+        target_coor=f32(r.uniform(-.5, .5, (bs, out_res, out_res, 3))),
+        loss_msk=np.ones((bs, out_res, out_res, 3), np.float32),
+        trans_local=f32(r.normal(size=(bs, 3))),
+        pose=f32(np.concatenate([_quat_to_rot(q), t[..., None]], -1)),
+        c_box=f32(r.uniform(200, 400, (bs, 2))),
+        s_box=f32(r.uniform(100, 200, (bs,))),
+        dim=f32(r.uniform(.05, .15, (bs, 3))))
+
+
+class SyntheticSixDoFDataset:
+    """``n`` seeded synthetic samples (:func:`make_sixdof_batch`), made in
+    bulk at construction; ``batches`` yields tuples of numpy arrays in the
+    field order of ``sixdof.train.Batch``."""
+
+    FIELDS = ('inp', 'target_coor', 'loss_msk', 'trans_local', 'pose',
+              'c_box', 's_box', 'dim')
+
+    def __init__(self, n: int, inp_res: int = 256, out_res: int = 64,
+                 seed: int = 0):
+        self.data = make_sixdof_batch(seed, n, inp_res, out_res)
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
+        order = (np.random.default_rng(seed).permutation(self.n) if shuffle
+                 else np.arange(self.n))
+        for start in range(0, self.n - batch_size + 1, batch_size):
+            idx = order[start:start + batch_size]
+            yield tuple(self.data[k][idx] for k in self.FIELDS)
+
+
+def make_bounded_pnp_problem(b: int, n: int, seed: int, dof: int = 6,
+                             init_noise=(0.05, 0.1)) -> dict:
+    """:func:`make_pnp_problem` with per-object projection bounds (B, 4)
+    ``[lb_u, lb_v, ub_u, ub_v]`` that clamp part of the points, and the
+    adaptive Huber delta of the training recipe (``relative_delta`` 0.1).
+
+    dof 6 (the 6DoF training crops): the LineMOD focal length, and each
+    object's box spans the 5%-95% quantiles of its own projections, so
+    about a fifth of the points lie past a bound. dof 4 (the Det solve):
+    a nuScenes-like focal length at 4-20 m, principal points shifted per
+    object across a 1600x672 image, whose box (200 px of border) clamps
+    the objects that reach past it. Float64 arrays.
+    """
+    if dof == 6:
+        p = make_pnp_problem(b, n, seed, init_noise=init_noise,
+                             focal=(572.4, 573.6), depth=(2.0, 6.0))
+        lo = np.quantile(p['x2d'], 0.05, axis=1)
+        hi = np.quantile(p['x2d'], 0.95, axis=1)
+    else:
+        p = make_pnp_problem(b, n, seed, dof=4, init_noise=init_noise,
+                             focal=(1266.4, 1266.4), depth=(4.0, 20.0))
+        shift = np.random.default_rng(seed + 1).uniform(
+            [-150.0, -150.0], [1750.0, 820.0], (b, 2))
+        p['x2d'] = p['x2d'] + shift[:, None]
+        p['cams'][:, :2, 2] += shift
+        lo = np.broadcast_to([-200.5, -200.5], (b, 2))
+        hi = np.broadcast_to([1799.5, 871.5], (b, 2))
+    p['bounds'] = np.ascontiguousarray(np.concatenate([lo, hi], -1))
+    x2d_std = np.sqrt(p['x2d'].var(axis=1, ddof=1).sum(-1))
+    p['delta'] = p['w2d'].mean(axis=(1, 2)) * x2d_std * 0.1
+    return p

@@ -80,8 +80,8 @@ def test_kernel_wrappers_refuse_bad_tensors(cuda_device):
     with pytest.raises(ValueError, match='contiguous'):
         lm_kernel.lm_solve(x3d.transpose(0, 1).contiguous().transpose(0, 1),
                            x2d, w2d, cam4, delta, pose0)
-    with pytest.raises(NotImplementedError, match='never JtJ'):
-        lm_kernel.lm_solve(x3d, x2d, w2d, cam4, delta, pose0, with_jtj=True)
+    with pytest.raises(NotImplementedError, match='dof 4 and 6'):
+        lm_kernel.lm_solve(x3d, x2d, w2d, cam4, delta, pose0, dof=3)
     with pytest.raises(ValueError, match='seeds'):
         rslm_kernel.rslm_init(x3d, x2d, w2d, cam4, delta,
                               torch.zeros(4, dtype=torch.int64,
@@ -267,3 +267,87 @@ def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
                                                       z_min=0.1),
             tpnp.HuberPnPCost(delta=delta), out_cost=True).cost
         assert torch.isclose(ck, ev, rtol=1e-3, atol=0).all()
+
+
+def _frac_close(a, b_, floor=0.0):
+    """Share of rows whose every entry is within 1e-4 * (|b| + floor)."""
+    a, b_ = a.double(), b_.double()
+    ok = (a - b_).abs() <= 1e-4 * (b_.abs() + floor)
+    return ok.reshape(ok.shape[0], -1).all(-1).float().mean().item()
+
+
+@pytest.mark.parametrize('dof,b,n,num_iter,jtj', [
+    (6, 128, 16, 3, False), (6, 32, 512, 5, True), (4, 1536, 128, 10, True)])
+def test_lm_kernel_training_modes_match_twin(cuda_device, dof, b, n,
+                                             num_iter, jtj):
+    """K1 in the trust region with projection bounds (and the JtJ output)
+    at the training shapes, as chip_smoke.py phase i holds it: 99% of the
+    objects on the twin's cost and pose at rtol 1e-4, or the kernel as
+    close to the f64 twin as the f32 twin is (cost within 0.005 of its
+    share, pose within 0.02: clamped points leave flat directions in which
+    f32 rounding moves the pose, and the f32 twin itself meets its f64
+    pose for only 78-97% of the objects here); where the poses agree, 99%
+    of the objects have max|dJtJ| <= 1e-4 max|JtJ| (an all-zero JtJ, of an
+    object whose points all lie past a bound, agrees with itself)."""
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    p = make_bounded_pnp_problem(b, n, 11, dof, init_noise=(
+        (0.3, 0.5) if n == 16 else (0.05, 0.1)))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=cuda_device)
+         for k, v in p.items()}
+    args = (t['x3d'], t['x2d'], t['w2d'],
+            lm_kernel.camera_to_fxfycxcy(t['cams']).contiguous(), t['delta'],
+            t['pose0'])
+    kw = dict(bounds=t['bounds'], dof=dof, num_iter=num_iter,
+              fast_mode=False, z_min=0.1, with_jtj=jtj)
+    before = lm_kernel.launches_train
+    out_k = lm_kernel.lm_solve(*args, **kw)
+    assert lm_kernel.launches_train == before + 1
+    out_t = lm_kernel.lm_solve_reference(*args, **kw)
+    out_64 = lm_kernel.lm_solve_reference(
+        *(a.double() for a in args), **dict(kw, bounds=t['bounds'].double()))
+    assert all(torch.isfinite(o).all() for o in out_k)
+    cost = _frac_close(out_k[1], out_t[1])
+    assert cost >= 0.99 or _frac_close(out_k[1], out_64[1]) >= _frac_close(
+        out_t[1], out_64[1]) - 0.005
+    pose = _frac_close(out_k[0], out_t[0], 1e-2)
+    assert pose >= 0.99 or _frac_close(out_k[0], out_64[0], 1e-2) >= \
+        _frac_close(out_t[0], out_64[0], 1e-2) - 0.02
+    if jtj:
+        same = ((out_k[0] - out_t[0]).abs() <= 1e-4 * (out_t[0].abs() + 1e-2)
+                ).all(-1)
+        scale = out_t[2].abs().amax((1, 2))
+        ok = (out_k[2] - out_t[2]).abs().amax((1, 2)) <= 1e-4 * scale
+        assert ok[same].float().mean() >= 0.99
+
+
+def test_train_step_on_card_launches_k1_twice(cuda_device):
+    """One 6DoF training step on the card (tiny CDPN, fused kernels on):
+    K1 runs twice in its training modes (the init's proposals and the main
+    solve with JtJ) and no time in the serving modes; the losses are
+    finite and the parameters move."""
+    import dataclasses
+    from epropnp_tpu_torch.sixdof import config, main
+    from epropnp_tpu_torch.utils.synthetic import make_sixdof_batch
+    cfg = config.SixDoFConfig(
+        network=config.NetworkConfig(back_layers_num=18),
+        dataiter=config.DataIterConfig(inp_res=64, out_res=16,
+                                       sample_points=32),
+        pnp=dataclasses.replace(config.PnPConfig(), use_pallas=True,
+                                mc_samples=64),
+        train=config.TrainConfig(lr_epoch_step=()))
+    model, _, step_fn = main.build_all(cfg, device=cuda_device)
+    state = main.init_state(cfg, model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = main.to_device(tuple(make_sixdof_batch(0, 8, 64, 16).values()),
+                           cuda_device)
+    k1, k1_train = lm_kernel.launches, lm_kernel.launches_train
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    metrics = step_fn(state, batch, gen)
+    torch.cuda.synchronize()
+    assert lm_kernel.launches_train == k1_train + 2
+    assert lm_kernel.launches == k1
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert int(metrics['skipped']) == 0
+    assert any(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items()
+               if k.endswith('weight'))

@@ -245,10 +245,11 @@ def test_wrappers_refuse_what_they_do_not_run():
                                     dict(bounds=True, fast_mode=False),
                                     dict(with_jtj=True)])
 def test_lm_kernel_refuses_options_not_ported(option):
-    """The CUDA kernel runs fast mode at dof 6 or 4 with or without bounds,
-    and the trust region at dof 6 without bounds; its wrapper raises on
-    JtJ and on dof 4 or bounds in trust-region mode before it looks at the
-    device (the twin takes them all)."""
+    """The training modes are in the CUDA kernel's scope now: with dof 4 or
+    bounds in trust-region mode, or with the JtJ output, the CUDA wrapper
+    gets past its scope check and refuses only the CPU tensor (no silent
+    CPU run); the CPU wrapper runs the twin. Only a dof other than 4 or 6
+    is refused as out of scope."""
     p = make_problem(5, b=4, n=8, dof=option.get('dof', 6))
     _, t = both(p, np.float32)
     kw = dict(option)
@@ -257,10 +258,13 @@ def test_lm_kernel_refuses_options_not_ported(option):
     args = (t['x3d'], t['x2d'], t['w2d'],
             lm_kernel.camera_to_fxfycxcy(t['cams']).contiguous(),
             torch.ones(4), t['pose0'])
-    with pytest.raises(NotImplementedError, match='never JtJ'):
+    with pytest.raises(ValueError, match='CUDA tensors'):
         lm_kernel.lm_solve_cuda(*args, **kw)
+    with pytest.raises(NotImplementedError, match='dof 4 and 6'):
+        lm_kernel.lm_solve_cuda(*args, **dict(kw, dof=3))
     out = lm_kernel.lm_solve(*args, **kw)  # CPU: the twin runs them
     assert all(torch.isfinite(o).all() for o in out)
+    assert len(out) == (3 if kw.get('with_jtj') else 2)
 
 
 def test_lm_kernel_takes_dof4_with_bounds_in_fast_mode():
@@ -297,7 +301,10 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.det.api, epropnp_tpu_torch.det.test, '
             'epropnp_tpu_torch.ops.dcn_kernel, '
             'epropnp_tpu_torch.ops.level_pack, '
-            'epropnp_tpu_torch.utils.synthetic; '
+            'epropnp_tpu_torch.utils.synthetic, '
+            'epropnp_tpu_torch.sixdof.main, '
+            'epropnp_tpu_torch.demo.fit_identity, '
+            'epropnp_tpu_torch.ops.rotation_conversions; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')
