@@ -62,10 +62,26 @@ j. 6DoF training: ``sixdof.main.train_loop`` at
    profiled by kind. Before it (not counted), one step at reduced size
    (ResNet-18, 64x64) on the card and on the CPU with the same draws.
 k. ``demo/fit_identity`` reduced (8192 poses, 2 epochs): the loss falls.
+l. K2 with projection bounds (dof 4, N=128, 64 x 16 x 3, the Det training
+   init) against its twin (and an f64 twin) at B=288 and B=1536: per
+   object as phase b+ at dof 4, cost consistency, median within 2x.
+m. K3's gradient (``DCNFunction``: the kernel's forward, the
+   ``dcn_backward`` torch ops) against torch autograd through the twin (f32
+   and f64) at the stage-3 layer, the stride-2 first block and FCOS level
+   0 of 6 images at 672x1600; the backward's and forward's times and the
+   backward's peak memory.
+n. Det training: ``det.main.train_loop`` at ``DetConfig.v1b()`` width with
+   ``use_pallas`` (ResNet-101-DCN, 6 images of 1600x672 a step, AMIS 128,
+   RSLM 64x16x3, AdamW; f32, TF32 off) on seeded synthetic batches, 6
+   steps of which the last 4 are timed; every step must launch K2 with
+   bounds twice, K3-f32 36 times and K1 twice in its training modes, and
+   nothing else; then one step profiled by kind. Before it (not counted),
+   one reduced step (ResNet-18, 64x64, DCN in the towers) on the card and
+   on the CPU in f32 and f64 with the draws replayed.
 
 Every launch counter is set to 0 just before each path that a user's
-call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j and k) and
-read just after it. Earlier lines print each phase's numbers, the card's
+call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k and n)
+and read just after it. Each phase's wall time is printed. Earlier lines print each phase's numbers, the card's
 ``nvidia-smi`` name and power limit, and one JSON object with a row per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -266,6 +282,7 @@ def kernel_counters():
     return {'K1': (lm_kernel, 'launches'),
             'K1-train': (lm_kernel, 'launches_train'),
             'K2': (rslm_kernel, 'launches'),
+            'K2-bounds': (rslm_kernel, 'launches_bounds'),
             'K2-legacy': (rslm_kernel, 'launches_legacy'),
             'K3-f32': (dcn_kernel, 'launches'),
             'K3-bf16': (dcn_kernel, 'launches_bf16'),
@@ -1405,17 +1422,20 @@ def tiny_train_cfg():
 
 
 class DrawReplay:
-    """Records every random draw of a training step (the point subsample,
-    the init's sampler, the AMIS proposals) and replays them, cast to the
-    caller's dtype and device, so that runs on the card and on the CPU, in
-    f32 and f64, see the same random numbers."""
+    """Records every random draw of a training step (the 6DoF point
+    subsample or the Det object sampler, the init's sampler, the AMIS
+    proposals) and replays them, cast to the caller's dtype (indices stay
+    integers) and device, so that runs on the card and on the CPU, in f32
+    and f64, see the same random numbers."""
 
-    def __init__(self):
+    def __init__(self, det: bool = False):
+        from epropnp_tpu_torch.models.dense_heads import deform_pnp_head
         from epropnp_tpu_torch.ops.pnp import distributions
         from epropnp_tpu_torch.ops.pnp import levenberg_marquardt as lm
         from epropnp_tpu_torch.sixdof import train
         self.sites = [(distributions, '_draw'), (lm, '_rand'),
-                      (train, 'sample_point_indices')]
+                      (deform_pnp_head, 'draw_object_samples') if det
+                      else (train, 'sample_point_indices')]
         self.real = {name: getattr(mod, name) for mod, name in self.sites}
         self.draws, self.replay = [], None
 
@@ -1447,24 +1467,17 @@ class DrawReplay:
             out = self.replay.pop(0)
             if like is None:
                 return out.to(device)
-            return out.to(device=like.device, dtype=like.dtype)
+            return out.to(device=like.device, dtype=like.dtype
+                          if out.is_floating_point() else out.dtype)
         return draw
 
 
-def train_step_snapshot(torch, cfg, model, batch, device):
-    """One training step of ``model`` on ``device``: the losses, the
-    gradient and the update of every parameter, the BatchNorm statistics
-    (numpy, float64)."""
-    from epropnp_tpu_torch.sixdof import main as smain
-    from epropnp_tpu_torch.sixdof import train as strain
-    dtype = next(model.parameters()).dtype
-    state = strain.TrainState(model, strain.make_optimizer(cfg, model))
-    step = strain.make_train_step(strain.build_epropnp(cfg), cfg,
-                                  torch.tensor(LINEMOD_K, dtype=dtype,
-                                               device=device))
+def step_snapshot(torch, model, run_step):
+    """``run_step()`` (one training step of ``model``) and what it did: the
+    losses, the gradient and the update of every parameter, the BatchNorm
+    statistics (numpy, float64)."""
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    tb = strain.Batch(*(t.to(dtype) for t in smain.to_device(batch, device)))
-    metrics = step(state, tb, torch.Generator().manual_seed(0))
+    metrics = run_step()
     as_np = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
     return dict(
         losses={k: float(v) for k, v in metrics.items()},
@@ -1473,6 +1486,20 @@ def train_step_snapshot(torch, cfg, model, batch, device):
                  for k, p in model.named_parameters()},
         stats={k: as_np(v) for k, v in model.named_buffers()
                if k.endswith(('running_mean', 'running_var'))})
+
+
+def train_step_snapshot(torch, cfg, model, batch, device):
+    """One 6DoF training step of ``model`` on ``device`` (:func:`step_snapshot`)."""
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof import train as strain
+    dtype = next(model.parameters()).dtype
+    state = strain.TrainState(model, strain.make_optimizer(cfg, model))
+    step = strain.make_train_step(strain.build_epropnp(cfg), cfg,
+                                  torch.tensor(LINEMOD_K, dtype=dtype,
+                                               device=device))
+    tb = strain.Batch(*(t.to(dtype) for t in smain.to_device(batch, device)))
+    return step_snapshot(torch, model, lambda: step(
+        state, tb, torch.Generator().manual_seed(0)))
 
 
 def leaf_rel(a, b):
@@ -1490,26 +1517,22 @@ def rel_l2(a, b):
     return (num / max(den, 1e-60)) ** 0.5, worst
 
 
-def train_card_vs_cpu(torch, device):
-    """One reduced-size training step (``tiny_train_cfg``, 4 crops) on the
-    card and on the CPU, f32, TF32 off, the same weights and the same
-    draws; and the CPU in f64 as the yardstick of f32 rounding."""
+def card_vs_cpu(torch, device, model, snapshot, label, det=False):
+    """One reduced-size training step of ``model`` on the card and on the
+    CPU, f32, TF32 off, the same weights and the same draws, and the CPU in
+    f64 as the yardstick of f32 rounding; ``snapshot(model, device)`` runs
+    the step. The rules: losses within TRAIN_LOSS_REL of the CPU's,
+    BatchNorm statistics within TRAIN_STATS_REL, gradients and updates no
+    further from the f64 run than TRAIN_F64_FACTOR times the CPU f32 run
+    (+ 1e-5)."""
     import copy
-    from epropnp_tpu_torch.sixdof import main as smain
-    from epropnp_tpu_torch.utils.synthetic import make_sixdof_batch
-    cfg = tiny_train_cfg()
-    model, _, _ = smain.build_all(cfg, device='cpu')
-    smain.init_state(cfg, model, seed=3)
-    batch = tuple(make_sixdof_batch(3, 4, 64, 16).values())
-    with DrawReplay() as draws:
-        cpu = train_step_snapshot(torch, cfg, copy.deepcopy(model), batch,
-                                  torch.device('cpu'))
+    cpu_dev = torch.device('cpu')
+    with DrawReplay(det) as draws:
+        cpu = snapshot(copy.deepcopy(model), cpu_dev)
         draws.start_replay()
-        card = train_step_snapshot(torch, cfg, copy.deepcopy(model).to(
-            device), batch, device)
+        card = snapshot(copy.deepcopy(model).to(device), device)
         draws.start_replay()
-        cpu64 = train_step_snapshot(torch, cfg, copy.deepcopy(model).double(),
-                                    batch, torch.device('cpu'))
+        cpu64 = snapshot(copy.deepcopy(model).double(), cpu_dev)
     losses = lambda r: {k: v for k, v in r['losses'].items()  # noqa: E731
                         if k.startswith('loss')}
     lc, l32, l64 = losses(card), losses(cpu), losses(cpu64)
@@ -1523,49 +1546,60 @@ def train_card_vs_cpu(torch, device):
         out[f'{what}_card_vs_cpu'] = rel_l2(card[what], cpu[what])
         out[f'{what}_card_vs_f64'] = rel_l2(card[what], cpu64[what])
         out[f'{what}_cpu_f32_vs_f64'] = rel_l2(cpu[what], cpu64[what])
-    print('path j: reduced step, card vs CPU (f32, TF32 off, same draws); '
-          '[global, worst leaf] relative L2 for gradients and updates: '
+    print(f'{label}, card vs CPU (f32, TF32 off, same draws); [global, '
+          'worst leaf] relative L2 for gradients and updates: '
           + json.dumps(out) + f'; rule: losses {TRAIN_LOSS_REL:g} of the '
           f'CPU\'s, BatchNorm statistics {TRAIN_STATS_REL:g}, gradients and '
           f'updates no further from the f64 run than {TRAIN_F64_FACTOR:g}x '
           'the CPU f32 run (+1e-5)')
-    print('path j: reduced step losses: card ' + json.dumps(card['losses'])
+    print(f'{label} losses: card ' + json.dumps(card['losses'])
           + ' CPU ' + json.dumps(cpu['losses']))
     assert out['losses_card_vs_cpu'] <= TRAIN_LOSS_REL, \
-        'reduced step: losses differ'
+        f'{label}: losses differ'
     assert out['stats_card_vs_cpu'] <= TRAIN_STATS_REL, \
-        'reduced step: BatchNorm statistics differ'
+        f'{label}: BatchNorm statistics differ'
     for what in ('grads', 'updates'):
         for i, scope in enumerate(('global', 'worst leaf')):
             assert out[f'{what}_card_vs_f64'][i] <= TRAIN_F64_FACTOR * out[
                 f'{what}_cpu_f32_vs_f64'][i] + 1e-5, \
-                f'reduced step: {what} ({scope}) further from f64 than f32'
+                f'{label}: {what} ({scope}) further from f64 than f32'
     return out
 
 
-def profile_train_step(torch, fn):
-    """One training step under ``torch.profiler``, its device time by kind:
-    the CDPN forward, the AMIS forward (K1 apart), K1, the backward (CDPN
-    and PnP graph), the optimizer; cuDNN/GEMM kernels over both passes;
-    the device-idle share of the step's wall time."""
+def train_card_vs_cpu(torch, device):
+    """The reduced 6DoF step (``tiny_train_cfg``, 4 crops), card against
+    CPU (:func:`card_vs_cpu`)."""
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.utils.synthetic import make_sixdof_batch
+    cfg = tiny_train_cfg()
+    model, _, _ = smain.build_all(cfg, device='cpu')
+    smain.init_state(cfg, model, seed=3)
+    batch = tuple(make_sixdof_batch(3, 4, 64, 16).values())
+    return card_vs_cpu(
+        torch, device, model, lambda m, dev: train_step_snapshot(
+            torch, cfg, m, batch, dev), 'path j: reduced step')
+
+
+def profile_step(torch, fn, wrapped, label):
+    """One call of ``fn`` (a training step) under ``torch.profiler``, with
+    each ``wrapped`` method (label -> (owner, name)) in a named range.
+    Returns ``(wall ms, device ms of each range, the device kernels, their
+    self device ms)``, or None (printed) where the trace is unreadable. The
+    ranges (and torch's own Optimizer.step annotation) also show on the
+    device timeline, as spans from their first kernel to their last: not
+    kernels, but the device-time extent of each range."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from epropnp_tpu_torch.models.cdpn import CDPN
-    from epropnp_tpu_torch.ops.pnp.epropnp import EProPnPBase
-    from epropnp_tpu_torch.sixdof.train import RMSprop
-    wrapped = {'cdpn forward': (CDPN, 'forward'),
-               'amis forward': (EProPnPBase, 'monte_carlo_forward'),
-               'optimizer': (RMSprop, 'step')}
     saved = {}
 
-    def scoped(label, real):
+    def scoped(name, real):
         def call(*args, **kwargs):
-            with record_function(label):
+            with record_function(name):
                 return real(*args, **kwargs)
         return call
 
-    for label, (cls, name) in wrapped.items():
-        saved[label] = getattr(cls, name)
-        setattr(cls, name, scoped(label, saved[label]))
+    for name, (owner, attr) in wrapped.items():
+        saved[name] = getattr(owner, attr)
+        setattr(owner, attr, scoped(name, saved[name]))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1575,8 +1609,8 @@ def profile_train_step(torch, fn):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        for label, (cls, name) in wrapped.items():
-            setattr(cls, name, saved[label])
+        for name, (owner, attr) in wrapped.items():
+            setattr(owner, attr, saved[name])
     try:
         dev = lambda e: (getattr(e, 'device_time_total', None)  # noqa: E731
                          or getattr(e, 'cuda_time_total', 0)) / 1e3
@@ -1588,40 +1622,62 @@ def profile_train_step(torch, fn):
                 ranges[e.name] += dev(e)
         device_rows = [e for e in prof.key_averages()
                        if str(getattr(e, 'device_type', '')).endswith('CUDA')]
-        # the ranges (and torch's own Optimizer.step annotation) also show
-        # on the device timeline, as spans from their first kernel to their
-        # last: not kernels, but the device-time extent of each range
         is_span = lambda e: (getattr(e, 'is_user_annotation', False)  # noqa: E731,E501
                              or e.key in wrapped
                              or e.key.startswith('Optimizer.'))
-        spans = {e.key: self_dev(e) for e in device_rows if is_span(e)}
         kernels = [e for e in device_rows if not is_span(e)]
-        busy = sum(self_dev(e) for e in kernels)
-        share = lambda *keys: sum(  # noqa: E731
-            self_dev(e) for e in kernels
-            if any(k in e.key.lower() for k in keys))
-        k1 = share('lm_solve_kernel')
-        kinds = dict(
-            wall_ms=wall, device_busy_ms=busy,
-            device_idle_share=max(0.0, 1.0 - busy / wall),
-            cdpn_forward_ms=ranges['cdpn forward'],
-            amis_forward_without_k1_ms=ranges['amis forward'] - k1,
-            k1_ms=k1, optimizer_ms=ranges['optimizer'],
-            backward_and_rest_ms=busy - ranges['cdpn forward']
-            - ranges['amis forward'] - ranges['optimizer'],
-            cudnn_gemm_kernels_ms=share('conv', 'cudnn', 'xmma', 'gemm',
-                                        'cutlass', 'dgrad', 'wgrad',
-                                        'implicit', 'winograd', 'fft'),
-            kernel_launches=int(sum(e.count for e in kernels)),
-            range_spans_on_device_ms=spans)
-        top = sorted(kernels, key=self_dev, reverse=True)[:8]
+        return wall, ranges, kernels, self_dev
     except Exception as err:  # noqa: BLE001 - reading the trace only
-        print(f'path j: profile unreadable ({type(err).__name__}: {err})')
+        print(f'{label}: profile unreadable ({type(err).__name__}: {err})')
         return None
-    print('path j: one training step by kind (ms): ' + json.dumps(kinds))
-    for e in top:
-        print(f'path j:   {self_dev(e):9.3f} ms  x{e.count:<5d} '
+
+
+def print_kinds(label, kinds, kernels, self_dev, top):
+    print(f'{label}: one training step by kind (ms): ' + json.dumps(kinds))
+    for e in sorted(kernels, key=self_dev, reverse=True)[:top]:
+        print(f'{label}:   {self_dev(e):9.3f} ms  x{e.count:<5d} '
               f'{e.key[:90]}')
+
+
+def kernel_share(kernels, self_dev, *keys):
+    """Self device ms of the kernels whose name holds one of ``keys``."""
+    return sum(self_dev(e) for e in kernels
+               if any(k in e.key.lower() for k in keys))
+
+
+CUDNN_GEMM_KEYS = ('conv', 'cudnn', 'xmma', 'gemm', 'cutlass', 'dgrad',
+                   'wgrad', 'implicit', 'winograd', 'fft')
+
+
+def profile_train_step(torch, fn):
+    """One 6DoF training step by kind: the CDPN forward, the AMIS forward
+    (K1 apart), K1, the backward (CDPN and PnP graph), the optimizer;
+    cuDNN/GEMM kernels over both passes; the device-idle share of the
+    step's wall time."""
+    from epropnp_tpu_torch.models.cdpn import CDPN
+    from epropnp_tpu_torch.ops.pnp.epropnp import EProPnPBase
+    from epropnp_tpu_torch.sixdof.train import RMSprop
+    got = profile_step(torch, fn, {
+        'cdpn forward': (CDPN, 'forward'),
+        'amis forward': (EProPnPBase, 'monte_carlo_forward'),
+        'optimizer': (RMSprop, 'step')}, 'path j')
+    if got is None:
+        return None
+    wall, ranges, kernels, self_dev = got
+    busy = sum(self_dev(e) for e in kernels)
+    k1 = kernel_share(kernels, self_dev, 'lm_solve_kernel')
+    kinds = dict(
+        wall_ms=wall, device_busy_ms=busy,
+        device_idle_share=max(0.0, 1.0 - busy / wall),
+        cdpn_forward_ms=ranges['cdpn forward'],
+        amis_forward_without_k1_ms=ranges['amis forward'] - k1,
+        k1_ms=k1, optimizer_ms=ranges['optimizer'],
+        backward_and_rest_ms=busy - ranges['cdpn forward']
+        - ranges['amis forward'] - ranges['optimizer'],
+        cudnn_gemm_kernels_ms=kernel_share(kernels, self_dev,
+                                           *CUDNN_GEMM_KEYS),
+        kernel_launches=int(sum(e.count for e in kernels)))
+    print_kinds('path j', kinds, kernels, self_dev, 8)
     return kinds
 
 
@@ -1707,6 +1763,410 @@ def path_fit_identity(torch, device):
     return res
 
 
+# ------------------------------------------------------------ Det training
+
+# K3's backward (phase m) against torch autograd through the twin, f32 on
+# both sides: max|d| <= (2e-4 + 2e-5) max|ref| per gradient, the JAX DCN
+# gradient rule (rtol 2e-4, atol 2e-5; tests/test_pallas_dcn.py:63) put
+# relative to the largest entry.
+DCN_BWD_REL = 2e-4 + 2e-5
+DCN_BWD_SHAPES = [  # (n, h, w, c, cout, stride, what)
+    (6, 42, 100, 256, 256, 1, 'backbone stage 3 (x22 per step)'),
+    (6, 84, 200, 256, 256, 2, 'backbone stage 3 first block'),
+    (6, 84, 200, 256, 256, 1, 'FCOS towers, level 0 (x2 per step)'),
+]
+# Path n: steps of det.main.train_loop at v1b, the last DET_TRAIN_TIMED
+# timed; per step K2 with bounds twice (the Monte Carlo forward's init and
+# the score solve), K3-f32 36 times (26 backbone DCNs, 2 towers x 5
+# levels) and K1 twice in its training modes.
+DET_TRAIN_STEPS, DET_TRAIN_TIMED = 6, 4
+DET_STEP_LAUNCHES = {'K2-bounds': 2, 'K3-f32': 36, 'K1-train': 2}
+# nuScenes CAM_FRONT-like intrinsics after the sky crop (1600x900 ->
+# 1600x672, 228 rows off the top)
+NUSCENES_K_CROPPED = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 263.5],
+                      [0.0, 0.0, 1.0]]
+
+
+def phase_l(torch, device):
+    """K2 with projection bounds (dof 4, N=128, 64 proposals x 16 points x
+    3 iterations) against its twin and an f64 twin, at B=288 (one v1b
+    training step's objects) and B=1536."""
+    from epropnp_tpu_torch.ops.pnp import PerspectiveCamera, HuberPnPCost
+    from epropnp_tpu_torch.ops.pnp import evaluate_pnp
+    from epropnp_tpu_torch.ops.pnp import rslm_kernel as k2
+    from epropnp_tpu_torch.ops.pnp.lm_kernel import camera_to_fxfycxcy
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    rows = []
+    for b in (288, 1536):
+        p = make_bounded_pnp_problem(b, 128, 90, 4)
+        t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in p.items()}
+        seeds = torch.randint(0, 2 ** 31 - 1, (b,), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(b)
+                              ).to(device)
+        args = (t['x3d'], t['x2d'], t['w2d'],
+                camera_to_fxfycxcy(t['cams']).contiguous(), t['delta'],
+                seeds)
+        kw = dict(bounds=t['bounds'], dof=4, num_points=16,
+                  num_proposals=64, num_iter=3, z_min=0.1, score_points=128)
+        run_k = lambda: k2.rslm_init_cuda(*args, **kw)  # noqa: E731
+        run_t = lambda: k2.rslm_init_reference(*args, **kw)  # noqa: E731
+        pk, ck = run_k()
+        _, ct = run_t()
+        _, c64 = k2.rslm_init_reference(
+            *(a.double() for a in args[:5]), seeds,
+            **dict(kw, bounds=t['bounds'].double()))
+        camera = PerspectiveCamera(cam_mats=t['cams'], z_min=0.1,
+                                   lb=t['bounds'][:, :2],
+                                   ub=t['bounds'][:, 2:])
+        ev = evaluate_pnp(t['x3d'], t['x2d'], t['w2d'], pk, camera,
+                          HuberPnPCost(delta=t['delta']), out_cost=True).cost
+        torch.cuda.synchronize()
+        ck_n, ct_n, c64_n, ev_n = (a.cpu().numpy()
+                                   for a in (ck, ct, c64, ev))
+        assert torch.isfinite(pk).all() and np.isfinite(ck_n).all(), \
+            'K2 with bounds non-finite'
+        lo, hi = p['bounds'][:, None, :2], p['bounds'][:, None, 2:]
+        past = ((p['x2d'] < lo) | (p['x2d'] > hi)).any(-1)
+        row = dict(B=b, N=128, dof=4, points_past_bounds=float(past.mean()),
+                   objects_past_bounds=float(past.any(-1).mean()),
+                   per_object_agree=frac_close(ck_n, ct_n),
+                   kernel_vs_f64_cost_agree=frac_close(ck_n, c64_n),
+                   twin_f32_vs_f64_cost_agree=frac_close(ct_n, c64_n),
+                   consistency=float(agree(ck_n, ev_n, K2_CONSIST_RTOL,
+                                           0.0).mean()),
+                   median_cost=float(np.median(ck_n)),
+                   twin_median_cost=float(np.median(ct_n)),
+                   max_abs_cost_err=float(np.abs(ck_n - ct_n).max()))
+        row['ms'] = time_ms(torch, run_k, iters=10)
+        row['plain_ms'] = time_ms(torch, run_t, iters=3)
+        flops = b * kw['num_proposals'] * (
+            K1_POINT_FLOPS[4] * kw['num_points'] * (kw['num_iter'] + 1)
+            + K2_SCORE_FLOPS * 128)
+        row['bound_ms'], row['bound_by'] = bound_ms(
+            flops, b * (28 * 128 + 4 * (4 + 4 + 1 + 1 + 4 + 1)))
+        print('phase l: K2 with bounds ' + json.dumps(row))
+        assert row['per_object_agree'] >= K1_MIN_FRAC or (
+            row['kernel_vs_f64_cost_agree']
+            >= row['twin_f32_vs_f64_cost_agree'] - 0.005), \
+            f'K2 with bounds disagrees with its twin at B={b}'
+        assert row['consistency'] == 1.0, \
+            'K2 with bounds: cost is not the bounded cost of its pose'
+        assert row['median_cost'] <= K2_MEDIAN_RATIO * row[
+            'twin_median_cost'], 'K2 with bounds: init worse than 2x twin'
+        rows.append(row)
+    pooled = k2_bounds_pooled(torch, device)
+    print('phase l: K2 with bounds, pooled over 40 problems '
+          + json.dumps(pooled))
+    assert pooled['kernel_vs_f64_cost_agree'] >= pooled[
+        'twin_f32_vs_f64_cost_agree'] - 0.005, \
+        'K2 with bounds: pooled, further from f64 than the f32 twin'
+    main = rows[0]
+    return dict(name='rslm_init with projection bounds (K2)', route='cuda',
+                source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
+                replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:817',
+                max_abs_err=max(r['max_abs_cost_err'] for r in rows),
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=None)
+
+
+def k2_bounds_pooled(torch, device):
+    """Phase l's per-object shares pooled over 40 problems (B=288 and 1536,
+    problem seeds 21-30, object seeds ``arange * 7919`` and drawn): which of
+    two near-tied proposals wins is decided by f32 rounding, so one problem
+    of 288 objects moves the shares by a few percent either way."""
+    from epropnp_tpu_torch.ops.pnp import rslm_kernel as k2
+    from epropnp_tpu_torch.ops.pnp.lm_kernel import camera_to_fxfycxcy
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    costs, spread = [], []
+    for b in (288, 1536):
+        for seed in range(21, 31):
+            p = make_bounded_pnp_problem(b, 128, seed, 4)
+            t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                 for k, v in p.items()}
+            for drawn in (False, True):
+                seeds = (torch.randint(
+                    0, 2 ** 31 - 1, (b,), dtype=torch.int32,
+                    generator=torch.Generator().manual_seed(seed)) if drawn
+                    else torch.arange(b, dtype=torch.int32) * 7919).to(device)
+                args = (t['x3d'], t['x2d'], t['w2d'],
+                        camera_to_fxfycxcy(t['cams']).contiguous(),
+                        t['delta'], seeds)
+                kw = dict(bounds=t['bounds'], dof=4, num_points=16,
+                          num_proposals=64, num_iter=3, z_min=0.1,
+                          score_points=128)
+                ck = k2.rslm_init_cuda(*args, **kw)[1]
+                ct = k2.rslm_init_reference(*args, **kw)[1]
+                c64 = k2.rslm_init_reference(
+                    *(a.double() for a in args[:5]), seeds,
+                    **dict(kw, bounds=t['bounds'].double()))[1]
+                c = [a.cpu().numpy() for a in (ck, ct, c64)]
+                costs.append(c)
+                if b == 288:
+                    spread.append(frac_close(c[0], c[2])
+                                  - frac_close(c[1], c[2]))
+    ck, ct, c64 = (np.concatenate(c) for c in zip(*costs))
+    return dict(objects=len(ck), per_object_agree=frac_close(ck, ct),
+                kernel_vs_f64_cost_agree=frac_close(ck, c64),
+                twin_f32_vs_f64_cost_agree=frac_close(ct, c64),
+                b288_kernel_minus_twin_share_range=[min(spread),
+                                                    max(spread)])
+
+
+def phase_m(torch, device):
+    """K3's gradient (the kernel's forward in ``DCNFunction``, the
+    ``dcn_backward`` torch ops) against torch autograd through the twin,
+    f32 and f64, at the Det training shapes (6 images of 672x1600)."""
+    from epropnp_tpu_torch.ops import dcn_kernel as k3
+    rows = []
+    names = ('x', 'offset_mask', 'weight', 'bias')
+    for i, (n, h, w, c, cout, stride, what) in enumerate(DCN_BWD_SHAPES):
+        x, om, weight = dcn_problem(torch, device, n, h, w, c, cout, stride,
+                                    70 + i)
+        gen = torch.Generator(device=device).manual_seed(70 + i)
+        bias = torch.randn((cout,), generator=gen, device=device) * 0.1
+        ho, wo = k3.output_hw(h, w, stride)
+        ct = torch.randn((n, ho, wo, cout), generator=gen, device=device)
+
+        def grads(fn, dtype):
+            leaves = [t.to(dtype).clone().requires_grad_()
+                      for t in (x, om, weight, bias)]
+            out = fn(*leaves, stride=stride)
+            return torch.autograd.grad(out, leaves, ct.to(dtype))
+
+        g_k = grads(k3.dcn_forward, torch.float32)
+        g_32 = grads(k3.dcn_reference, torch.float32)
+        g_64 = grads(k3.dcn_reference, torch.float64)
+        torch.cuda.synchronize()
+        row = dict(shape=[n, h, w, c, cout], stride=stride, what=what,
+                   L=n * ho * wo)
+        for name, a, b32, b64 in zip(names, g_k, g_32, g_64):
+            scale = float(b32.abs().max())
+            row[f'{name}_rel_err'] = float((a - b32).abs().max()) / scale
+            row[f'{name}_rel_err_f64'] = float(
+                (a.double() - b64).abs().max()) / float(b64.abs().max())
+            row[f'{name}_twin_f32_rel_err_f64'] = float(
+                (b32.double() - b64).abs().max()) / float(b64.abs().max())
+            assert torch.isfinite(a).all(), f'K3 backward: {name} non-finite'
+        del g_k, g_32, g_64
+        w3 = k3.kernel_weight(weight)
+        with torch.no_grad():
+            row['forward_ms'] = time_ms(torch, lambda: k3.dcn_forward_cuda(
+                x, om, w3, None, stride), iters=10)
+            row['backward_ms'] = time_ms(torch, lambda: k3.dcn_backward(
+                x, om, w3, ct, stride, 2.0), warmup=1, iters=5)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            k3.dcn_backward(x, om, w3, ct, stride, 2.0)
+            torch.cuda.synchronize()
+            row['backward_peak_extra_gib'] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        length = n * ho * wo
+        # the two products (d_s = ct W^T, d_W = s^T ct) and the corner
+        # work (combine, <g, d_s>, scatter: ~24 operations per tap and
+        # channel); each input read and each output written once
+        flops = 4 * length * 9 * c * cout + 24 * length * 9 * c
+        nbytes = 4 * (2 * n * h * w * c + 2 * length * 27
+                      + 2 * 9 * c * cout + length * cout + cout)
+        row['backward_bound_ms'], row['backward_bound_by'] = bound_ms(
+            flops, nbytes)
+        print('phase m: K3 backward ' + json.dumps(row) + f'; rule: '
+              f'max|d| <= {DCN_BWD_REL:g} max|ref| (f32 autograd of the twin)')
+        for name in names:
+            assert row[f'{name}_rel_err'] <= DCN_BWD_REL, \
+                f'K3 backward: {name} disagrees at {what}'
+        rows.append(row)
+        del x, om, weight, bias, ct
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tiny_det_cfg():
+    """``tests/test_det_train.py::tiny_cfg`` (ResNet-18, 32-wide head,
+    64x64 images), K1 on; the model gets DCNv2 in its FCOS towers."""
+    from epropnp_tpu_torch.det.config import (DetConfig, DetPnPConfig,
+                                              DetTrainConfig)
+    return DetConfig(
+        num_classes=3, backbone_depth=18, embed_dims=32, num_heads=4,
+        num_points=4, strides=(4, 8, 16, 32), output_stride=4,
+        with_loss_regr=True, num_attrs=4,
+        pnp=DetPnPConfig(mc_samples=16, num_iter=2, lm_num_iter=2,
+                         rs_num_points=8, rs_num_proposals=4, rs_num_iter=1,
+                         use_pallas=True),
+        train=DetTrainConfig(num_obj_samples_per_img=4, roi_shape=(8, 8),
+                             max_gt_per_img=4))
+
+
+TINY_DET_OVERRIDES = dict(
+    backbone_dcn_stages=(), dcn_on_last_conv=True,
+    detector_cfg=dict(feat_channels=32, emb_channels=32, cls_branch=(32,),
+                      centerness_branch=(16,), offset_branch=(32,),
+                      emb_branch=(32,),
+                      regress_ranges=((-1, 16), (16, 32), (32, 1e8))))
+
+
+def det_step_snapshot(torch, cfg, model, batch, device):
+    """One Det training step of ``model`` on ``device``
+    (:func:`step_snapshot`)."""
+    from epropnp_tpu_torch.det import main as dmain
+    from epropnp_tpu_torch.det import train as dtrain
+    state = dmain.init_state(cfg, model)
+    tb = dmain.to_device(batch, device, next(model.parameters()).dtype)
+    return step_snapshot(torch, model, lambda: dtrain.make_train_step(cfg)(
+        state, tb, torch.Generator().manual_seed(0)))
+
+
+def det_train_card_vs_cpu(torch, device):
+    """The reduced Det step (``tiny_det_cfg``, DCN in the towers, 2 images
+    of 64x64), card against CPU (:func:`card_vs_cpu`); K3 must run on the
+    card."""
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.ops import dcn_kernel
+    from epropnp_tpu_torch.utils.synthetic import (DET_BATCH_FIELDS,
+                                                   make_det_batch)
+    cfg = tiny_det_cfg()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = api.build_detector(cfg, **TINY_DET_OVERRIDES)
+    b = make_det_batch(5)
+    batch = tuple(b[k] for k in DET_BATCH_FIELDS)
+    k3_0 = dcn_kernel.launches
+    out = card_vs_cpu(torch, device, model, lambda m, dev: det_step_snapshot(
+        torch, cfg, m, batch, dev), 'path n: reduced Det step', det=True)
+    out['k3_launches_on_card'] = dcn_kernel.launches - k3_0
+    print(f'path n: reduced Det step: {out["k3_launches_on_card"]} K3 '
+          'launches on the card')
+    assert out['k3_launches_on_card'] > 0, \
+        'reduced Det step: K3 not launched on the card'
+    return out
+
+
+def profile_det_train_step(torch, fn):
+    """One Det training step by kind: the dense forward (backbone, FPN,
+    FCOS, key/value: cuDNN and K3), K3, the DCN backward (torch ops), K1,
+    K2, the AMIS forward without K1 and K2, the optimizer; cuDNN/GEMM
+    kernels over both passes; the device-idle share of the step's wall
+    time."""
+    from epropnp_tpu_torch.det.train import AdamW
+    from epropnp_tpu_torch.models.detectors.epropnp_det import EProPnPDet
+    from epropnp_tpu_torch.ops import dcn_kernel
+    from epropnp_tpu_torch.ops.pnp.epropnp import EProPnPBase
+    got = profile_step(torch, fn, {
+        'dense forward': (EProPnPDet, 'det_dense'),
+        'amis forward': (EProPnPBase, 'monte_carlo_forward'),
+        'dcn backward': (dcn_kernel, 'dcn_backward'),
+        'optimizer': (AdamW, 'step')}, 'path n')
+    if got is None:
+        return None
+    wall, ranges, kernels, self_dev = got
+    busy = sum(self_dev(e) for e in kernels)
+    k1 = kernel_share(kernels, self_dev, 'lm_solve_kernel')
+    k2 = kernel_share(kernels, self_dev, 'rslm_init_kernel')
+    kinds = dict(
+        wall_ms=wall, device_busy_ms=busy,
+        device_idle_share=max(0.0, 1.0 - busy / wall),
+        dense_forward_ms=ranges['dense forward'],
+        k3_ms=kernel_share(kernels, self_dev, 'dcn_forward_kernel'),
+        dcn_backward_ms=ranges['dcn backward'], k1_ms=k1, k2_ms=k2,
+        amis_forward_without_k1_k2_ms=ranges['amis forward'] - k1 - k2,
+        optimizer_ms=ranges['optimizer'],
+        cudnn_gemm_kernels_ms=kernel_share(kernels, self_dev,
+                                           *CUDNN_GEMM_KEYS),
+        kernel_launches=int(sum(e.count for e in kernels)))
+    print_kinds('path n', kinds, kernels, self_dev, 10)
+    return kinds
+
+
+def det_train_batches(steps, n_img=6):
+    """Seeded synthetic Det training batches at the v1b geometry: 6 images
+    of 1600x672 (the sky-cropped nuScenes frame), 32 GT slots with 12
+    boxes each, 10 classes, 9 attributes."""
+    from epropnp_tpu_torch.utils.synthetic import (DET_BATCH_FIELDS,
+                                                   make_det_batch)
+    out = []
+    for i in range(steps):
+        b = make_det_batch(200 + i, n_img, 672, 1600, gmax=32, n_valid=12,
+                           cam=NUSCENES_K_CROPPED, x_range=(-6.0, 6.0),
+                           depth=(10.0, 40.0), num_classes=10, num_attrs=9)
+        out.append(tuple(b[k] for k in DET_BATCH_FIELDS))
+    return out
+
+
+def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
+    """``det.main.train_loop`` at ``DetConfig.v1b()`` width with
+    ``use_pallas`` (ResNet-101-DCN, FPN, FCOSEmbHead, DeformPnPHead, AMIS
+    128 samples, RSLM 64x16x3, LM 10, AdamW) on seeded synthetic batches of
+    6 images of 1600x672, f32 with TF32 off: ``steps`` steps, the last
+    DET_TRAIN_TIMED timed; every step's launches are checked."""
+    import dataclasses
+    import tempfile
+    from epropnp_tpu_torch.det import main as dmain
+    from epropnp_tpu_torch.det import train as dtrain
+    from epropnp_tpu_torch.det.config import DetConfig
+    base = DetConfig.v1b()
+    cfg = dataclasses.replace(
+        base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
+        train=dataclasses.replace(base.train, epochs=1, batch_size=6))
+    t0 = time.perf_counter()
+    batches = det_train_batches(steps)
+    print(f'path n: {steps} synthetic batches of 6 images made in '
+          f'{time.perf_counter() - t0:.1f} s')
+    stamps, metrics, per_step = [], [], []
+    last = dict(launch_counts())
+    warmup = steps - DET_TRAIN_TIMED
+
+    def on_step(epoch, i, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+        now = launch_counts()
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+        if i + 1 == warmup:  # the timed steps' own peak, apart
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+
+    peaks = []
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        state = dmain.train_loop(cfg, lambda epoch: iter(batches), steps,
+                                 save_dir, log_interval=steps, device=device,
+                                 on_step=on_step)
+        total = time.perf_counter() - t0
+    peak_timed = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(peaks + [peak_timed])
+    for i, (m, c) in enumerate(zip(metrics, per_step)):
+        print(f'path n: step {i}{" (warm-up)" if i < warmup else ""}: '
+              + json.dumps({k: round(v, 6) for k, v in m.items()})
+              + ' launches ' + json.dumps({k: v for k, v in c.items() if v}))
+    ms = (stamps[-1] - stamps[warmup - 1]) / DET_TRAIN_TIMED * 1e3
+    skipped = int(sum(m['skipped'] for m in metrics))
+    print('path n: ' + json.dumps(dict(
+        steps=steps, timed_steps=DET_TRAIN_TIMED, ms_per_step=ms,
+        images_per_s=6 / ms * 1e3, skipped_steps=skipped,
+        first_step_s=stamps[0] - t0,
+        loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak,
+        peak_mem_timed_steps_gib=peak_timed)))
+    assert len(metrics) == steps, 'train_loop: wrong number of steps'
+    assert all(np.isfinite(v) for m in metrics for v in m.values()), \
+        'Det train_loop: a non-finite loss or grad_norm'
+    for i, c in enumerate(per_step):
+        others = {k: v for k, v in c.items()
+                  if k not in DET_STEP_LAUNCHES and v}
+        assert all(c[k] == v for k, v in DET_STEP_LAUNCHES.items()) \
+            and not others, f'Det training step {i}: launches {c}'
+    step = dtrain.make_train_step(cfg)
+    batch = dmain.to_device(batches[0], device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    return dict(ms=ms, steps=steps, skipped=skipped, peak_gib=peak,
+                profile=lambda: profile_det_train_step(
+                    torch, lambda: step(state, batch, gen)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1722,6 +2182,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     torch.backends.cudnn.benchmark_limit = 0
     device = torch.device('cuda', 0)
+    t_run = time.perf_counter()
 
     from epropnp_tpu_torch import kernels
     t0 = time.perf_counter()
@@ -1742,12 +2203,16 @@ def main() -> int:
     for name, phase in (('a', phase_a), ('b', phase_b),
                         ('b+', phase_b_legacy), ('e', phase_e),
                         ('e+', phase_e_variants), ('f', phase_f),
-                        ('i', phase_i), ('j card vs CPU', train_card_vs_cpu)):
+                        ('i', phase_i), ('j card vs CPU', train_card_vs_cpu),
+                        ('l', phase_l), ('m', phase_m),
+                        ('n card vs CPU', det_train_card_vs_cpu)):
+        t0 = time.perf_counter()
         try:
             entries[name] = phase(torch, device)
         except Exception:  # noqa: BLE001 - report every phase, then fail
             traceback.print_exc()
             failed.append(name)
+        print(f'wall time of phase {name}: {time.perf_counter() - t0:.1f} s')
 
     # the main run: each path a caller drives, its counters from 0 just
     # before it and read just after it
@@ -1758,16 +2223,21 @@ def main() -> int:
              ('h', lambda: phase_h(torch, device)),
              ('h bf16 gather', lambda: phase_h_bf16(torch, device)),
              ('j', lambda: path_train(torch, device, TRAIN_STEPS)),
-             ('k', lambda: path_fit_identity(torch, device)))
+             ('k', lambda: path_fit_identity(torch, device)),
+             ('n', lambda: path_det_train(torch, device)))
     totals = dict.fromkeys(kernel_counters(), 0)
     results = {}
     for name, fn in paths:
+        t0 = time.perf_counter()
         try:
             counts = drive(torch, lambda: results.__setitem__(name, fn()))
         except Exception:  # noqa: BLE001
             traceback.print_exc()
             failed.append(name)
             continue
+        finally:
+            print(f'wall time of path {name}: '
+                  f'{time.perf_counter() - t0:.1f} s')
         print(f'launches in path {name}: {json.dumps(counts)}')
         for key, value in counts.items():
             totals[key] += value
@@ -1781,16 +2251,27 @@ def main() -> int:
                       f'{TRAIN_K1_PER_STEP * TRAIN_STEPS}; other kernels '
                       f'{others}', file=sys.stderr)
                 failed.append('j: K1 not launched twice per step')
-    if 'j' in results:
-        try:
-            results['j']['profile']()
-        except Exception:  # noqa: BLE001
-            traceback.print_exc()
-            failed.append('j profile')
+        if name == 'n':
+            expected = {k: v * DET_TRAIN_STEPS
+                        for k, v in DET_STEP_LAUNCHES.items()}
+            if {k: v for k, v in counts.items() if v} != expected:
+                print(f'path n: launches {counts}, expected {expected}',
+                      file=sys.stderr)
+                failed.append('n: Det training launches')
+    for name in ('j', 'n'):
+        if name in results:
+            t0 = time.perf_counter()
+            try:
+                results[name]['profile']()
+            except Exception:  # noqa: BLE001
+                traceback.print_exc()
+                failed.append(f'{name} profile')
+            print(f'wall time of the {name} profile: '
+                  f'{time.perf_counter() - t0:.1f} s')
     print('launches on the main run: ' + json.dumps(totals))
     variants = entries.get('e+') or [None, None]
     rows = {'K1': entries.get('a'), 'K1-train': entries.get('i'),
-            'K2': entries.get('b'),
+            'K2': entries.get('b'), 'K2-bounds': entries.get('l'),
             'K2-legacy': entries.get('b+'), 'K3-f32': entries.get('e'),
             'K3-bf16': variants[0], 'K3-int8': variants[1]}
     for key, row in rows.items():
@@ -1799,6 +2280,7 @@ def main() -> int:
         if row is not None:
             row['launches'] = totals[key]
     present = [row for row in rows.values() if row is not None]
+    print(f'wall time of the run: {time.perf_counter() - t_run:.1f} s')
     if present:
         print(json.dumps({'kernels': present}))
     if failed:

@@ -1,6 +1,8 @@
-"""Dimension coder for the Det suite (PyTorch), counterpart of
-``epropnp_tpu/core/bbox_3d/coders.py::MultiClassLogDimCoder``: per-class
-log-space dimension normalisation with the nuScenes statistics."""
+"""Target coders of the Det suite (PyTorch), counterpart of
+``epropnp_tpu/core/bbox_3d/coders.py``: ``DistDimProjErrorCoder`` scales
+reprojection errors by ``distance / (mean_dim * focal * std)``;
+``MultiClassLogDimCoder`` normalises dimensions per class in log space
+with the nuScenes statistics."""
 
 from __future__ import annotations
 
@@ -21,6 +23,24 @@ NUSCENES_DIM_STDS = (
     (2.06, 0.49, 0.33), (3.23, 0.93, 1.07), (0.26, 0.35, 0.16),
     (0.33, 0.29, 0.17), (0.19, 0.19, 0.14), (0.14, 0.27, 0.13),
     (0.17, 0.15, 0.62))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistDimProjErrorCoder:
+    target_std: float = 0.2
+    distance_min: float = 0.1
+
+    def _scale(self, distance, dimensions, focal):
+        denom = dimensions.mean(-1, keepdim=True) * focal * self.target_std
+        return torch.clamp(distance, min=self.distance_min), denom
+
+    def encode(self, x2d_diff, distance, dimensions, focal):
+        distance, denom = self._scale(distance, dimensions, focal)
+        return x2d_diff * (distance / denom)[..., None, :]
+
+    def decode(self, proj_error, distance, dimensions, focal):
+        distance, denom = self._scale(distance, dimensions, focal)
+        return proj_error * (denom / distance)[..., None, :]
 
 
 @dataclasses.dataclass(frozen=True)

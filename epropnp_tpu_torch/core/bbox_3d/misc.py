@@ -1,16 +1,69 @@
-"""3D box geometry for Det serving (PyTorch), counterpart of
-``epropnp_tpu/core/bbox_3d/misc.py``: box corners, clipping of box edges
-against a plane, 3D-to-2D boxes and the per-image BEV NMS glue. Box
-layout ``bbox_3d = [l, h, w, x, y, z, ry]`` (camera frame, y down).
+"""3D box geometry of the Det suite (PyTorch), counterpart of
+``epropnp_tpu/core/bbox_3d/misc.py``: unit NOC directions, projection with
+border clamping, box corners, clipping of box edges against a plane,
+3D-to-2D boxes and the per-image BEV NMS glue. Box layout
+``bbox_3d = [l, h, w, x, y, z, ry]`` (camera frame, y down).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ...ops.pnp.common import yaw_to_rot_mat
 from .nms import nms_rotated
+
+def gen_unit_noc(num_pts: int, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """Fibonacci-sphere unit directions (num_pts, 3)."""
+    indices = torch.arange(num_pts, dtype=dtype, device=device) + 0.5
+    phi = torch.arccos(1.0 - 2.0 * indices / num_pts)
+    theta = math.pi * (1.0 + 5.0 ** 0.5) * indices
+    return torch.stack([torch.cos(theta) * torch.sin(phi),
+                        torch.sin(theta) * torch.sin(phi),
+                        torch.cos(phi)], -1)
+
+
+def project_to_image_r_mat(x3d, r_mat, t_vec, cam_intrinsic, img_shapes,
+                           z_min: float = 0.5, allowed_border: float = 200,
+                           return_z: bool = False,
+                           return_clip_mask: bool = False):
+    """Project (*, n, 3) points by [R|t] and the intrinsics, depth clamped
+    at ``z_min`` and the result clamped to the image (``img_shapes`` (*, 2)
+    [h, w]) widened by ``allowed_border``. Returns x2d (*, n, 2), then z
+    (*, n, 1) and the clip mask (*, n) where asked for."""
+    proj_r = cam_intrinsic @ r_mat
+    proj_t = torch.einsum('...ij,...j->...i', cam_intrinsic, t_vec)
+    xyz = torch.einsum('...ij,...nj->...ni', proj_r, x3d) \
+        + proj_t[..., None, :]
+    z = xyz[..., 2:]
+    z_clip_mask = z < z_min
+    z = torch.clamp(z, min=z_min)
+    x2d = xyz[..., :2] / z
+    x2d_min = -allowed_border - 0.5
+    x2d_max = img_shapes.flip(-1)[..., None, :] + (allowed_border - 0.5)
+    if return_clip_mask:
+        oob = (x2d < x2d_min) | (x2d > x2d_max)
+        clip_mask = z_clip_mask[..., 0] | oob.any(-1)
+    x2d = torch.minimum(torch.clamp(x2d, min=x2d_min), x2d_max)
+    outs = (x2d,)
+    if return_z:
+        outs = outs + (z,)
+    if return_clip_mask:
+        outs = outs + (clip_mask,)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def project_to_image(x3d, pose, cam_intrinsic, img_shapes, z_min: float = 0.5,
+                     allowed_border: float = 200, return_z: bool = False,
+                     return_clip_mask: bool = False):
+    """:func:`project_to_image_r_mat` for 4DoF poses [x, y, z, yaw]."""
+    return project_to_image_r_mat(
+        x3d, yaw_to_rot_mat(pose[..., 3]), pose[..., :3], cam_intrinsic,
+        img_shapes, z_min, allowed_border, return_z, return_clip_mask)
+
 
 # corner layout and edges of a camera-frame box
 EDGE_CORNER_IDX = np.array(

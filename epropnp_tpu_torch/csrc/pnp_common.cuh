@@ -130,14 +130,19 @@ __device__ __forceinline__ float huber_cost(float ss, float s_sqrt,
   return s_sqrt <= delta ? 0.5f * ss : delta * s_sqrt - 0.5f * delta * delta;
 }
 
-// Huber cost of one point (scoring: no Jacobian).
-template <int DOF = 6>
+// Huber cost of one point (scoring: no Jacobian). BOUNDS clamps u, v
+// into the object's box first, as accumulate_point does.
+template <int DOF = 6, bool BOUNDS = false>
 __device__ __forceinline__ float point_cost(const float* r, const float* t,
                                             const ObjParams& o, float z_min,
-                                            float x, float y, float z,
-                                            float ut, float vt, float wu,
-                                            float wv) {
-  const Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+                                            const Bounds& bnd, float x,
+                                            float y, float z, float ut,
+                                            float vt, float wu, float wv) {
+  Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+  if constexpr (BOUNDS) {
+    p.u = fminf(fmaxf(p.u, bnd.lb_u), bnd.ub_u);
+    p.v = fminf(fmaxf(p.v, bnd.lb_v), bnd.ub_v);
+  }
   const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
   const float ss = ru * ru + rv * rv;
   return huber_cost(ss, sqrtf(fmaxf(ss, 1e-24f)), o.delta);

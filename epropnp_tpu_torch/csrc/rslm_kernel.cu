@@ -27,8 +27,12 @@
 // pairs) for the quaternion, or 1 uniform for the yaw. The PyTorch twin
 // (rslm_kernel.py) replays the same stream.
 //
-// Scope: dof 6 or 4 (template DOF), no projection bounds; the packed
-// Pallas kernel's bounds option is not ported yet.
+// Projection bounds (template BOUNDS, packed layout only, as the JAX entry
+// asserts for its legacy layout): a per-object box [lb_u, ub_u] x
+// [lb_v, ub_v] clamps every projection, in the proposal LM and in the
+// scoring (pallas_rslm.py _evaluate with bounds). In the proposal LM a
+// clamped coordinate loses only its own Jacobian row; "inside" is strict,
+// lb < u < ub, as in JAX.
 //
 // What bounds it on an H100: issue latency of small dependent scalar work.
 // Per proposal: a 16-point LM with an unrolled 6x6 Cholesky per step, then
@@ -76,12 +80,12 @@ __device__ __forceinline__ void block_allreduce(float* v, float* scratch) {
   __syncthreads();
 }
 
-template <int DOF>
+template <int DOF, bool BOUNDS>
 __global__ void rslm_init_kernel(
     const int* __restrict__ seeds, const float* __restrict__ x3d,
     const float* __restrict__ x2d, const float* __restrict__ w2d,
     const float* __restrict__ cam, const float* __restrict__ delta,
-    float* __restrict__ pose_out,
+    const float* __restrict__ bounds, float* __restrict__ pose_out,
     float* __restrict__ cost_out, int N, int P, int K, int score_stride,
     int score_n, LMParams prm) {
   extern __shared__ float smem[];
@@ -96,6 +100,7 @@ __global__ void rslm_init_kernel(
   const int b = blockIdx.x;
   const int p = threadIdx.x;
   const ObjParams o = load_obj(cam, delta, b);
+  const Bounds bnd = BOUNDS ? load_bounds(bounds, b) : Bounds{};
   const float* px3 = x3d + (size_t)b * N * 3;
   const float* px2 = x2d + (size_t)b * N * 2;
   const float* pw2 = w2d + (size_t)b * N * 2;
@@ -222,9 +227,9 @@ __global__ void rslm_init_kernel(
       for (int i = 0; i < kD; ++i) g[i] = 0.f;
       for (int i = 0; i < K; ++i) {
         const float* q7 = my + i * 7;
-        accumulate_point<true, DOF>(r, t, o, prm.z_min, Bounds{}, q7[0],
-                                    q7[1], q7[2], q7[3], q7[4], q7[5], q7[6],
-                                    c, jtj, g);
+        accumulate_point<true, DOF, BOUNDS>(r, t, o, prm.z_min, bnd, q7[0],
+                                            q7[1], q7[2], q7[3], q7[4],
+                                            q7[5], q7[6], c, jtj, g);
       }
     };
     float jtj[kT], g[kD];
@@ -240,8 +245,8 @@ __global__ void rslm_init_kernel(
     cost = 0.f;
     for (int j = 0; j < score_n; ++j) {
       const int n = j * score_stride;
-      cost += point_cost<DOF>(
-          r, t, o, prm.z_min, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
+      cost += point_cost<DOF, BOUNDS>(
+          r, t, o, prm.z_min, bnd, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
           __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
           __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1));
     }
@@ -281,20 +286,21 @@ __global__ void rslm_init_kernel(
   }
 }
 
-template <int DOF>
+template <int DOF, bool BOUNDS>
 int launch(const int* seeds, const float* x3d, const float* x2d,
            const float* w2d, const float* cam, const float* delta,
-           float* pose_out, float* cost_out, int B, int N, int P, int K,
+           const float* bounds, float* pose_out, float* cost_out, int B,
+           int N, int P, int K,
            int score_stride, int score_n, const LMParams& prm,
            cudaStream_t stream) {
   const int threads = (P + 31) / 32 * 32;
   const size_t smem = sizeof(float) * ((size_t)N + threads + (size_t)P * K * 7);
   cudaError_t err = cudaFuncSetAttribute(
-      rslm_init_kernel<DOF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      rslm_init_kernel<DOF, BOUNDS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  rslm_init_kernel<DOF><<<B, threads, smem, stream>>>(
-      seeds, x3d, x2d, w2d, cam, delta, pose_out, cost_out, N, P, K,
+  rslm_init_kernel<DOF, BOUNDS><<<B, threads, smem, stream>>>(
+      seeds, x3d, x2d, w2d, cam, delta, bounds, pose_out, cost_out, N, P, K,
       score_stride, score_n, prm);
   return (int)cudaGetLastError();
 }
@@ -303,11 +309,13 @@ int launch(const int* seeds, const float* x3d, const float* x2d,
 }  // namespace epropnp
 
 // Plain C entry point (loaded with ctypes). ``pose_out`` is (B, 7) at dof 6
-// and (B, 4) at dof 4. Returns the cudaError_t of the launch; 0 means the
+// and (B, 4) at dof 4; ``bounds`` is (B, 4) [lb_u, lb_v, ub_u, ub_v] or
+// null (no bounds). Returns the cudaError_t of the launch; 0 means the
 // kernel was queued on ``stream``.
 extern "C" int epropnp_rslm_init(
     const int* seeds, const float* x3d, const float* x2d, const float* w2d,
-    const float* cam, const float* delta, float* pose_out, float* cost_out,
+    const float* cam, const float* delta, const float* bounds,
+    float* pose_out, float* cost_out,
     int B, int N, int dof, int num_points, int num_proposals, int num_iter,
     int score_stride, int score_n, float z_min, float eps,
     float min_lm_diagonal, float max_lm_diagonal,
@@ -323,11 +331,15 @@ extern "C" int epropnp_rslm_init(
                         initial_trust_region_radius,
                         max_trust_region_radius};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dof == 4)
-    return epropnp::launch<4>(seeds, x3d, x2d, w2d, cam, delta, pose_out,
-                              cost_out, B, N, num_proposals, num_points,
-                              score_stride, score_n, prm, s);
-  return epropnp::launch<6>(seeds, x3d, x2d, w2d, cam, delta, pose_out,
-                            cost_out, B, N, num_proposals, num_points,
-                            score_stride, score_n, prm, s);
+#define EPROPNP_RSLM_LAUNCH(D, BND)                                        \
+  return epropnp::launch<D, BND>(seeds, x3d, x2d, w2d, cam, delta, bounds, \
+                                 pose_out, cost_out, B, N, num_proposals,  \
+                                 num_points, score_stride, score_n, prm, s)
+  if (dof == 4) {
+    if (bounds) EPROPNP_RSLM_LAUNCH(4, true);
+    EPROPNP_RSLM_LAUNCH(4, false);
+  }
+  if (bounds) EPROPNP_RSLM_LAUNCH(6, true);
+  EPROPNP_RSLM_LAUNCH(6, false);
+#undef EPROPNP_RSLM_LAUNCH
 }

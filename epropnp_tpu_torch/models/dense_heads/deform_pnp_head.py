@@ -1,9 +1,9 @@
 """DeformPnPHead (PyTorch), counterpart of
-``epropnp_tpu/models/dense_heads/deform_pnp_head.py``: the serving forward
-(``forward_det_dense``, ``forward_correspondence``, ``forward_subheads``)
-and the RoI regressor ``dense_corr_regr``. Object sampling, RoI features
-and the losses come with Det training; every parameter exists, so the
-state dict is whole.
+``epropnp_tpu/models/dense_heads/deform_pnp_head.py``: the forward
+(``forward_det_dense``, ``forward_correspondence``, ``forward_subheads``),
+the RoI features (``extract_rois``) and regressor (``dense_corr_regr``),
+and for training the importance object sampler (``obj_sampler``) and the
+EMA loss normalisers (``HeadEMAState``).
 
 Submodules carry the reference checkpoint's names: ``detector``,
 ``convs.{i}.conv``, ``conv_upsampled.{conv,gn}``, ``k_proj``, ``v_proj``,
@@ -18,6 +18,7 @@ back in the input's dtype.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -29,9 +30,88 @@ from ...ops.deform_conv import Conv2d, conv_nhwc
 from ...ops.deformable_attention import DeformableAttentionSampler
 from ...ops.group_linear import GroupLinear
 from ...ops.positional_encoding import dense_posenc, points_to_enc
+from ...ops.roi_align import roi_align
+from ..losses.monte_carlo_pose_loss import MonteCarloPoseLossState
 from ..necks.fpn import conv_module
 from .fcos_emb_head import FCOSEmbHead, group_norm_nhwc
 from .pts_transformer import PtsTransformerLayer
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadEMAState:
+    """EMA loss normalisers of a training step: the Monte Carlo pose loss's
+    ``norm_factor`` per stage and the reprojection loss's
+    ``proj_mean_inv_std``."""
+    pose_norm_factor: Tuple[MonteCarloPoseLossState, ...]
+    proj_mean_inv_std: torch.Tensor
+
+    @classmethod
+    def create(cls, num_stages: int = 1, dtype=torch.float32, device=None):
+        return cls(
+            pose_norm_factor=tuple(
+                MonteCarloPoseLossState.create(dtype=dtype, device=device)
+                for _ in range(num_stages)),
+            proj_mean_inv_std=torch.ones((), dtype=dtype, device=device))
+
+
+def draw_object_samples(gen: torch.Generator, fg_mask: torch.Tensor,
+                        prob: torch.Tensor, n_uniform: int,
+                        n_replace: int) -> torch.Tensor:
+    """The random part of :func:`obj_sampler`: ``n_uniform`` foreground
+    points without replacement (Gumbel top-k over the foreground), then
+    ``n_replace`` points with replacement from ``prob`` (clamped at 1e-30,
+    as JAX's categorical over ``log(max(prob, 1e-30))``). Returns the
+    (n_uniform + n_replace,) point indices."""
+    u = torch.rand(fg_mask.shape, generator=gen, device=gen.device,
+                   dtype=prob.dtype).to(prob.device)
+    tiny = torch.finfo(prob.dtype).tiny
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    inds_uniform = torch.topk(
+        torch.where(fg_mask, gumbel, -torch.inf), n_uniform).indices
+    inds_replace = torch.multinomial(
+        torch.clamp(prob, min=1e-30).to(gen.device), n_replace,
+        replacement=True, generator=gen).to(prob.device)
+    return torch.cat([inds_uniform, inds_replace])
+
+
+def obj_sampler(gen: torch.Generator, num_obj_samples: int,
+                fg_mask: torch.Tensor, centerness_targets: torch.Tensor,
+                gt_inds: torch.Tensor, num_gt: int,
+                uniform_mix_ratio: float = 0.5, eps: float = 1e-5):
+    """Importance-sample foreground points (a fixed number of samples):
+    half uniformly over the foreground, half by centerness, each weighted
+    back to a per-GT mean of 1. Returns (point_inds, gt_inds, weights,
+    uniform_weights, valid), each (num_obj_samples,)."""
+    dtype = centerness_targets.dtype
+    fg = fg_mask.to(dtype)
+    n_uniform = int(round(num_obj_samples * uniform_mix_ratio))
+    n_replace = num_obj_samples - n_uniform
+
+    prob = centerness_targets * fg
+    prob = prob / torch.clamp(prob.sum(), min=eps)
+    prob_uniform = fg / torch.clamp(fg.sum(), min=1.0)
+    prob_mix = prob_uniform * uniform_mix_ratio \
+        + prob * (1.0 - uniform_mix_ratio)
+
+    point_inds = draw_object_samples(gen, fg_mask, prob, n_uniform,
+                                     n_replace)
+    sample_valid = fg_mask[point_inds]
+    sample_gt_inds = gt_inds[point_inds]
+    w_prob = prob[point_inds] / torch.clamp(prob_mix[point_inds], min=eps)
+    w_prob = torch.where(sample_valid, w_prob, 0.0)
+    onehot = (sample_gt_inds[:, None] == torch.arange(
+        num_gt, device=gt_inds.device)[None, :]) & sample_valid[:, None]
+    gt_prob_sum = (w_prob[:, None] * onehot).sum(0)
+    gt_w = 1.0 / torch.clamp(gt_prob_sum, min=eps)
+    sample_weights = w_prob * gt_w[sample_gt_inds] * sample_valid
+    sample_weights = sample_weights / torch.clamp(sample_weights.mean(),
+                                                  min=eps)
+    gt_uw = 1.0 / torch.clamp(onehot.to(dtype).sum(0), min=1.0)
+    uniform_weights = gt_uw[sample_gt_inds] * sample_valid
+    uniform_weights = uniform_weights / torch.clamp(uniform_weights.mean(),
+                                                    min=eps)
+    return (point_inds, sample_gt_inds, sample_weights, uniform_weights,
+            sample_valid)
 
 
 class Scale(nn.Module):
@@ -189,7 +269,9 @@ class DeformPnPHead(nn.Module):
         mask = mask_samples.transpose(-1, -2)  # (n, heads, pts, 1)
 
         flip = torch.tensor([-1.0, 1.0], dtype=x2d.dtype, device=x2d.device)
-        x2d_flip = torch.where(sample_flips[:, None, None], x2d * flip, x2d)
+        x2d_flip = x2d.detach()  # the posenc passes no gradient (JAX's)
+        x2d_flip = torch.where(sample_flips[:, None, None], x2d_flip * flip,
+                               x2d_flip)
         mean = x2d_flip.mean(1, keepdim=True)
         std = x2d_flip.std(1, unbiased=False, keepdim=True)
         pos_enc = self.x2d_pos_enc((x2d_flip - mean) / std.clamp(min=1.0))
@@ -256,6 +338,18 @@ class DeformPnPHead(nn.Module):
             obj_flips)
         return SubheadOutputs(query, scale, score_pred, dim_enc, dim_dec,
                               velo, attr, noc_list, w2d_list, x2d)
+
+    def extract_rois(self, roi_img_inds, roi_boxes, img_dense_x2d, key,
+                     value, roi_shape=(28, 28)):
+        """RoI-aligned x2d (image pixels), key and value (maps at
+        ``output_stride``), each (n, rh, rw, c)."""
+        x2d_roi = roi_align(img_dense_x2d, roi_img_inds, roi_boxes,
+                            roi_shape, 1.0)
+        key_roi = roi_align(key, roi_img_inds, roi_boxes, roi_shape,
+                            1.0 / self.output_stride)
+        value_roi = roi_align(value, roi_img_inds, roi_boxes, roi_shape,
+                              1.0 / self.output_stride)
+        return x2d_roi, key_roi, value_roi
 
     def dense_corr_regr(self, value_roi, gt_flips):
         """corr_regs[0] over RoI features (n, rh, rw, embed) -> (noc,

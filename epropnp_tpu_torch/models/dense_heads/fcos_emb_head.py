@@ -1,8 +1,8 @@
 """FCOS-style detection head with projected-3D-centre offsets and object
 embeddings (PyTorch, NHWC), counterpart of
-``epropnp_tpu/models/dense_heads/fcos_emb_head.py`` (the per-level and the
-level-packed forward, and ``get_preds``; targets and losses come with Det
-training).
+``epropnp_tpu/models/dense_heads/fcos_emb_head.py``: the per-level and the
+level-packed forward, ``get_preds``, and the training targets and losses
+(``get_targets``, ``loss``).
 
 Submodules carry mmdet's names: the ``cls_convs``/``reg_convs`` towers
 (``.{i}.conv`` and ``.{i}.gn``; with ``dcn_on_last_conv`` the last conv is
@@ -25,10 +25,15 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
 from ...ops.deform_conv import Conv2d, DeformConv, conv_nhwc
 from ...ops.level_pack import (
     map_levels, pack_levels, plan_level_packing, unpack_levels)
+from ..losses.det_losses import sigmoid_focal_loss, smooth_l1_loss_mod
 from ..necks.fpn import conv_module
+
+INF = 1e8
 
 
 def gn_groups(channels: int, preferred: int = 32) -> int:
@@ -87,7 +92,13 @@ class FCOSEmbHead(nn.Module):
     def __init__(self, num_classes: int = 10, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 2,
                  strides: Sequence[int] = (8, 16, 32, 64, 128),
-                 emb_channels: int = 256, offset_cls_agnostic: bool = True,
+                 regress_ranges: Sequence[Tuple[float, float]] = (
+                     (-1, 48), (48, 96), (96, 192), (192, 384), (384, INF)),
+                 emb_channels: int = 256, centerness_alpha: float = 2.5,
+                 center_sample_radius: float = 1.5,
+                 center_error_scale: float = 0.2,
+                 min_ref_length: float = 4.0,
+                 offset_cls_agnostic: bool = True,
                  dcn_on_last_conv: bool = True,
                  dcn_modulation_scale: float = 2.0,
                  dcn_int8_gather: bool = False,
@@ -100,6 +111,11 @@ class FCOSEmbHead(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
+        self.regress_ranges = tuple(tuple(r) for r in regress_ranges)
+        self.centerness_alpha = centerness_alpha
+        self.center_sample_radius = center_sample_radius
+        self.center_error_scale = center_error_scale
+        self.min_ref_length = min_ref_length
         self.offset_cls_agnostic = offset_cls_agnostic
         self.dense_dtype = dense_dtype
         self.level_packed = level_packed
@@ -238,3 +254,88 @@ class FCOSEmbHead(nn.Module):
             gathered=[flat(maps)[img_inds, point_inds]
                       for maps in extra_maps],
             points=pts[point_inds])
+
+    # ------------------------------------------------------------ training
+
+    def get_targets(self, points_per_lvl, gt_bboxes, gt_labels, gt_mask,
+                    centers2d):
+        """Fixed-shape FCOS target assignment.
+
+        points_per_lvl: (p_l, 2) per level; gt_bboxes (num_img, max_gt, 4),
+        gt_labels and gt_mask (num_img, max_gt), centers2d (num_img,
+        max_gt, 2) the projected 3D centres. Each point takes the nearest
+        centre among the GT boxes that contain it, whose centre lies within
+        ``center_sample_radius`` strides and whose largest side distance is
+        in the level's regression range. Returns (labels, centerness
+        targets, gt_inds), each (num_img, P); labels == num_classes marks
+        background (gt_inds then meaningless).
+        """
+        dtype, dev = gt_bboxes.dtype, gt_bboxes.device
+        pts = torch.cat(list(points_per_lvl), 0)[None]          # (1, P, 2)
+        rr = torch.cat([torch.tensor(r, dtype=dtype, device=dev).expand(
+            p.shape[0], 2) for p, r in zip(points_per_lvl,
+                                           self.regress_ranges)])
+        strides = torch.cat([
+            torch.full((p.shape[0],), s, dtype=dtype, device=dev)
+            for p, s in zip(points_per_lvl, self.strides)])
+        # (num_img, P, max_gt)
+        dx = pts[..., 0, None] - centers2d[:, None, :, 0]
+        dy = pts[..., 1, None] - centers2d[:, None, :, 1]
+        dists = torch.sqrt(dx * dx + dy * dy)
+        radius = strides[:, None] * self.center_sample_radius
+        inside_center = (dx.abs() < radius) & (dy.abs() < radius)
+        left = pts[..., 0, None] - gt_bboxes[:, None, :, 0]
+        top = pts[..., 1, None] - gt_bboxes[:, None, :, 1]
+        right = gt_bboxes[:, None, :, 2] - pts[..., 0, None]
+        bottom = gt_bboxes[:, None, :, 3] - pts[..., 1, None]
+        inside_box = torch.minimum(torch.minimum(left, right),
+                                   torch.minimum(top, bottom)) > 0
+        max_reg = torch.maximum(torch.maximum(left, right),
+                                torch.maximum(top, bottom))
+        in_range = (max_reg >= rr[:, None, 0]) & (max_reg <= rr[:, None, 1])
+        valid = inside_center & inside_box & in_range & gt_mask[:, None, :]
+        dists = torch.where(valid, dists, INF)
+        gt_ind = torch.argmin(dists, -1)  # the first minimum, as jnp
+        min_dist = torch.gather(dists, -1, gt_ind[..., None])[..., 0]
+        labels = torch.where(min_dist < INF,
+                             torch.gather(gt_labels, 1, gt_ind),
+                             self.num_classes)
+        ctr = torch.exp(-self.centerness_alpha * min_dist / (1.414 * strides))
+        return labels, ctr, gt_ind
+
+    def loss(self, flat_cls, flat_center, flat_centerness, labels, gt_inds,
+             centerness_targets, centers2d, gt_bboxes):
+        """Masked FCOS losses over the points of all images.
+
+        flat_cls (N, num_classes); flat_center (N, 2) or (N, C * 2);
+        flat_centerness (N,); labels, gt_inds, centerness_targets (N,);
+        centers2d (G, 2) and gt_bboxes (G, 4), the GT of all images that
+        gt_inds indexes. Returns ``loss_cls`` (focal), ``loss_rp`` (the
+        centre offset, smooth L1 weighted by centerness) and
+        ``loss_centerness`` (BCE on the positives).
+        """
+        pos = labels < self.num_classes
+        num_pos = torch.clamp(pos.to(flat_cls.dtype).sum(), min=1.0)
+        onehot = F.one_hot(labels, self.num_classes + 1)[
+            :, :self.num_classes].to(flat_cls.dtype)
+        loss_cls = sigmoid_focal_loss(flat_cls, onehot,
+                                      reduction='sum') / num_pos
+        if not self.offset_cls_agnostic:
+            lbl = torch.clamp(labels, max=self.num_classes - 1)
+            flat_center = torch.take_along_dim(
+                flat_center.reshape(-1, self.num_classes, 2),
+                lbl[:, None, None].expand(-1, 1, 2), 1)[:, 0]
+        center_gt = centers2d[gt_inds]
+        box_gt = gt_bboxes[gt_inds]
+        ref_len = box_gt[:, 2:] - box_gt[:, :2]
+        rel_err = (flat_center - center_gt) / (
+            self.center_error_scale * (ref_len + self.min_ref_length))
+        ctr_w = torch.where(pos, centerness_targets, 0.0)
+        loss_rp = smooth_l1_loss_mod(
+            rel_err, 0, beta=1.0, weight=ctr_w[:, None], reduction='sum') \
+            / (torch.clamp(ctr_w.sum(), min=1e-6) * 2.0)
+        bce = (F.softplus(-flat_centerness) * centerness_targets
+               + F.softplus(flat_centerness) * (1.0 - centerness_targets))
+        loss_centerness = torch.where(pos, bce, 0.0).sum() / num_pos
+        return dict(loss_cls=loss_cls, loss_rp=loss_rp,
+                    loss_centerness=loss_centerness)

@@ -3,7 +3,9 @@
 
 Submodules are ``backbone``, ``neck`` and ``bbox_head``, the top-level
 names of a released mmdet checkpoint. ``extract_feat`` and ``det_dense``
-take NHWC images; ``subheads`` runs the per-object stage.
+take NHWC images (in training mode the BatchNorms use the batch and move
+their statistics by flax's rule); ``subheads`` runs the per-object stage;
+``extract_rois`` and ``roi_regr`` the dense auxiliary stage of training.
 
 Serving options (``DetConfig.v1b_serving``): ``backbone_dtype`` computes
 the backbone and FPN in bf16 (parameters f32, the pyramid cast back to the
@@ -86,3 +88,9 @@ class EProPnPDet(nn.Module):
 
     def subheads(self, *args, **kwargs):
         return self.bbox_head.forward_subheads(*args, **kwargs)
+
+    def extract_rois(self, *args, **kwargs):
+        return self.bbox_head.extract_rois(*args, **kwargs)
+
+    def roi_regr(self, value_roi, gt_flips):
+        return self.bbox_head.dense_corr_regr(value_roi, gt_flips)

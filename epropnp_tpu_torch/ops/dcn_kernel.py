@@ -31,9 +31,14 @@ towers, stride 1): a list of (y0, x0, h, w) regions; each level samples
 only its own region, and the output is (L, cout) with positions level by
 level, then image, then row-major.
 
-Forward only: the backward (``_bwd_chunked`` in the JAX package) comes
-with Det training, so the wrapper refuses inputs that require grad while
-grad is enabled.
+Gradients: the f32 (and, on the CPU, f64) map without a level table goes
+through :class:`DCNFunction`, whose forward is the kernel (or the twin on
+the CPU) and whose backward is :func:`dcn_backward`, plain torch ops
+streamed over chunks of output rows (the counterpart of ``_bwd_chunked``,
+``pallas_dcn.py:199-248``; the JAX package's backward is jnp too). The
+bf16, int8 and level-table variants are forward only, as the JAX int8
+path: the wrapper refuses them inputs that require grad while grad is
+enabled.
 """
 
 from __future__ import annotations
@@ -45,6 +50,11 @@ import torch
 
 TAPS = 9
 MAX_LEVELS = 8
+# Output rows per chunk of the backward (``BWD_CHUNK_ROWS`` of the JAX
+# package): the (rows, 9, c) gathers of one corner stay ~75 MB at c=256 in
+# f32, where the whole (taps, L, 4, c) stack at FCOS level 0 and 6 images
+# would take 3.7 GB.
+BWD_CHUNK_ROWS = 8192
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # Launches of the CUDA kernel, counted by :func:`dcn_forward_cuda` alone,
@@ -173,6 +183,121 @@ def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
     return out.reshape(n, ho, wo, cout)
 
 
+def _positions(offset_mask, rows: slice, ho: int, wo: int, stride: int):
+    """Image index and sampling positions of the output rows ``rows`` of
+    ``offset_mask.reshape(-1, 27)``: ``(img (r,), py, px (r, 9))``, in the
+    offsets' dtype."""
+    dt = offset_mask.dtype
+    dev = offset_mask.device
+    flat = torch.arange(rows.start, rows.stop, device=dev)
+    img, rem = flat // (ho * wo), flat % (ho * wo)
+    tap = torch.arange(TAPS, device=dev)
+    om = offset_mask.reshape(-1, 3 * TAPS)[rows]
+    off = om[:, :2 * TAPS].reshape(-1, TAPS, 2)
+    py = ((rem // wo) * stride).to(dt)[:, None] + (tap // 3 - 1).to(dt) \
+        + off[..., 0]
+    px = ((rem % wo) * stride).to(dt)[:, None] + (tap % 3 - 1).to(dt) \
+        + off[..., 1]
+    return img, py, px
+
+
+def dcn_backward(x, offset_mask, weight3, grad_out, stride: int = 1,
+                 modulation_scale: float = 2.0,
+                 chunk_rows: int = BWD_CHUNK_ROWS):
+    """Gradients of :func:`dcn_reference` (no level table) with respect to
+    ``x`` (n, h, w, c), the raw ``offset_mask`` (n, ho, wo, 27), the kernel
+    weight ``weight3`` (9, c, cout) and the bias, given ``grad_out`` (n, ho,
+    wo, cout). Plain torch ops in ``x``'s dtype (f32 or f64), on either
+    device, streamed over chunks of ``chunk_rows`` output rows::
+
+        d_s = grad_out @ W^T        d_W += s^T @ grad_out
+        d_x[corner] += w4 * d_s     d_w4 = <x[corner], d_s>
+
+    then ``d_w4`` to the offsets through the bilinear corner weights and to
+    the mask logits through ``sigmoid * modulation_scale``. A corner outside
+    the map has weight 0 and passes no gradient (``bilinear_sample.py``'s
+    rule, which the JAX gradient follows). Returns ``(d_x, d_offset_mask,
+    d_weight3, d_bias)``.
+    """
+    n, h, w, c = x.shape
+    cout = weight3.shape[-1]
+    dt = x.dtype
+    ho, wo = output_hw(h, w, stride)
+    length = n * ho * wo
+    xf = x.reshape(n * h * w, c)
+    go = grad_out.reshape(length, cout).to(dt)
+    w_flat = weight3.to(dt).reshape(TAPS * c, cout)
+    om = offset_mask.to(dt)
+    d_x = torch.zeros_like(xf)
+    d_w = torch.zeros_like(w_flat)
+    d_om = torch.empty((length, 3 * TAPS), dtype=dt, device=x.device)
+    for start in range(0, length, chunk_rows):
+        rows = slice(start, min(length, start + chunk_rows))
+        img, py, px = _positions(om, rows, ho, wo, stride)
+        logit = om.reshape(-1, 3 * TAPS)[rows, 2 * TAPS:]
+        sig = torch.sigmoid(logit)
+        mod = sig * modulation_scale
+        y0, x0 = torch.floor(py), torch.floor(px)
+        wy, wx = py - y0, px - x0
+        cw = [(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx]
+        go_c = go[rows]
+        d_s = (go_c @ w_flat.T).reshape(-1, TAPS, c)
+        s = torch.zeros_like(d_s)
+        d_cw, d_mod = [], torch.zeros_like(mod)
+        for k in range(4):
+            yy, xx = y0 + (k >> 1), x0 + (k & 1)
+            inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+            row = torch.where(
+                inside, (img[:, None] * h + yy.clamp(0, h - 1).long())
+                * w + xx.clamp(0, w - 1).long(), 0)
+            g = xf[row]                                    # (r, 9, c)
+            wk = torch.where(inside, cw[k] * mod, 0)
+            s += g * wk[..., None]
+            d_x.index_add_(0, row.reshape(-1),
+                           (wk[..., None] * d_s).reshape(-1, c))
+            dw4 = torch.where(inside, (g * d_s).sum(-1), 0)
+            del g
+            d_cw.append(dw4 * mod)
+            d_mod += dw4 * cw[k]
+        d_w += s.reshape(-1, TAPS * c).T @ go_c
+        d_om[rows, 0:2 * TAPS:2] = (1 - wx) * (d_cw[2] - d_cw[0]) \
+            + wx * (d_cw[3] - d_cw[1])
+        d_om[rows, 1:2 * TAPS:2] = (1 - wy) * (d_cw[1] - d_cw[0]) \
+            + wy * (d_cw[3] - d_cw[2])
+        d_om[rows, 2 * TAPS:] = d_mod * modulation_scale * sig * (1 - sig)
+    return (d_x.reshape(x.shape), d_om.reshape(offset_mask.shape).to(
+        offset_mask.dtype), d_w.reshape(weight3.shape).to(weight3.dtype),
+        go.sum(0))
+
+
+class DCNFunction(torch.autograd.Function):
+    """K3 with a gradient: the kernel's forward (the twin on a CPU tensor)
+    and :func:`dcn_backward`. Takes an f32 map (f64 on the CPU), the weight
+    in the kernel's (9, c, cout) layout in the map's dtype, no level
+    table."""
+
+    @staticmethod
+    def forward(ctx, x, offset_mask, weight3, bias, stride,
+                modulation_scale):
+        ctx.save_for_backward(x, offset_mask, weight3)
+        ctx.stride, ctx.modulation_scale = stride, modulation_scale
+        ctx.has_bias = bias is not None
+        if x.device.type == 'cuda':
+            return dcn_forward_cuda(
+                x.contiguous(), offset_mask.float().contiguous(),
+                weight3.contiguous(), bias, stride, modulation_scale)
+        return dcn_reference(x, offset_mask, weight3, bias, stride,
+                             modulation_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, offset_mask, weight3 = ctx.saved_tensors
+        d_x, d_om, d_w, d_b = dcn_backward(
+            x, offset_mask, weight3, grad_out, ctx.stride,
+            ctx.modulation_scale, chunk_rows=BWD_CHUNK_ROWS)
+        return d_x, d_om, d_w, (d_b if ctx.has_bias else None), None, None
+
+
 def _check(name, t, shape, device, dtypes):
     if t.device != device:
         raise ValueError(f'{name}: on {t.device}, expected {device}')
@@ -266,15 +391,25 @@ def dcn_forward(x, offset_mask, weight, bias=None, stride: int = 1,
 
     ``weight`` is mmcv's (cout, c, 3, 3) or the kernel's (9, c, cout).
     On the card the bias is cast to the kernel dtype and the offsets to
-    f32. Any other device raises, and so does an input that requires grad
-    while grad is enabled (no backward).
+    f32. Any other device raises. Where grad is enabled and an input
+    requires it, an f32 map (f64 on the CPU) without a level table goes
+    through :class:`DCNFunction`; the other variants raise.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, offset_mask, weight, bias)):
-        raise NotImplementedError(
-            'dcn_forward is forward only: run it under torch.no_grad() (the '
-            'DCN backward comes with Det training)')
+        w3 = kernel_weight(weight) if weight.dim() == 4 else weight
+        grad_types = ((torch.float32,) if x.device.type == 'cuda'
+                      else (torch.float32, torch.float64))
+        if levels is not None or x.dtype not in grad_types \
+                or w3.dtype != x.dtype:
+            raise NotImplementedError(
+                'dcn_forward: the bf16, int8 and level-table variants are '
+                'forward only; run them under torch.no_grad()')
+        if x.device.type not in ('cuda', 'cpu'):
+            raise ValueError(f'dcn_forward: unsupported device {x.device}')
+        return DCNFunction.apply(x, offset_mask, w3, bias, stride,
+                                 modulation_scale)
     if x.device.type == 'cuda':
         w3 = kernel_weight(weight) if weight.dim() == 4 else weight
         cdt = compute_dtype(x.dtype, w3.dtype)

@@ -10,7 +10,8 @@ flax module stores the offsets as (dx, dy) pairs;
 ``utils.convert.det_state_dict`` swaps them. Inputs and outputs are NHWC.
 
 The sampling contraction is K3 (``ops.dcn_kernel.dcn_forward``): the CUDA
-kernel on CUDA tensors, its torch twin on CPU tensors.
+kernel on CUDA tensors, its torch twin on CPU tensors; in training, with
+the backward of ``ops.dcn_kernel.DCNFunction``.
 """
 
 from __future__ import annotations
@@ -73,9 +74,13 @@ class DeformConv(nn.Module):
         self._weight3 = None  # (key, kernel-layout weight) cache
 
     def _kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """The weight in K3's (9, c, cout) layout and ``dtype``, re-laid
+        """The weight in K3's (9, c, cout) layout and ``dtype``. Where
+        autograd records (training), it is re-laid at every call and
+        carries the gradient back to ``weight``; otherwise it is re-laid
         once per change of the parameter (its version counter, storage,
         device) or of the dtype."""
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return kernel_weight(self.weight).to(dtype)
         key = (self.weight._version, self.weight.data_ptr(),
                self.weight.device, dtype)
         if self._weight3 is None or self._weight3[0] != key:

@@ -5,8 +5,8 @@ it, and the counterpart of the JAX entry ``rslm_init_pallas``. On a CUDA
 tensor it launches the hand-written kernel of ``csrc/rslm_kernel.cu`` (one
 block per object, one thread per proposal) or raises; on a CPU tensor it
 runs :func:`rslm_init_reference`, the same function written with torch
-ops. Both take dof 6 and 4; the twin also takes projection bounds, the
-kernel raises on them.
+ops. Both take dof 6 and 4, and (B, 4) projection bounds
+``[lb_u, lb_v, ub_u, ub_v]`` at shapes of the packed layout.
 
 The scoring follows the JAX entry's layout dispatch
 (``pallas_rslm.py:879-896``): shapes of the packed layout (num_points <=
@@ -39,8 +39,10 @@ import torch
 from .lm_kernel import _check, _evaluate, _lm_trust_region_step
 
 # Launches of the CUDA kernel, counted by :func:`rslm_init_cuda` alone:
-# at shapes of the packed layout, and at the legacy layout's.
+# at shapes of the packed layout without and with projection bounds, and
+# at the legacy layout's.
 launches = 0
+launches_bounds = 0
 launches_legacy = 0
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -118,6 +120,15 @@ def _score_layout(n: int, num_points: int, score_points: Optional[int],
     return n // score_points, score_points
 
 
+def _check_bounds(bounds, b: int) -> None:
+    """``bounds``: None or a (B, 4) ``[lb_u, lb_v, ub_u, ub_v]`` tensor."""
+    if bounds is not None and (not isinstance(bounds, torch.Tensor)
+                               or tuple(bounds.shape) != (b, 4)):
+        shape = tuple(getattr(bounds, 'shape', ()))
+        raise ValueError(f'bounds: expected a ({b}, 4) tensor [lb_u, lb_v, '
+                         f'ub_u, ub_v], got {type(bounds).__name__} {shape}')
+
+
 def _centre_init(x3d, x2d, cam, dof):
     """(B, 3) translation init from the point spreads (kernel arithmetic:
     sums times 1/N, two-pass unbiased variances)."""
@@ -161,6 +172,7 @@ def rslm_init_reference(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
     p, k = num_proposals, num_points
     dt = x3d.dtype
     pose_dim = 4 if dof == 4 else 7
+    _check_bounds(bounds, b)
     stride, n_sc = _score_layout(n, k, score_points, bounds)
 
     t0 = _centre_init(x3d, x2d, cam_fxfycxcy, dof)            # (B, 3)
@@ -234,16 +246,18 @@ def rslm_init_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
                    score_points: Optional[int] = None,
                    tile_obj: int = 4, group_pack: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K2 kernel on CUDA tensors (f32, contiguous).
+    """Launch the K2 kernel on CUDA tensors (f32, contiguous); ``bounds``
+    is None or (B, 4) ``[lb_u, lb_v, ub_u, ub_v]`` (packed layout only).
     ``tile_obj`` and ``group_pack`` are accepted and ignored (TPU knobs)."""
-    global launches, launches_legacy
+    global launches, launches_bounds, launches_legacy
     from ...kernels import check_launch, load_library
 
-    if dof not in (4, 6) or bounds is not None:
+    if dof not in (4, 6):
         raise NotImplementedError(
-            'rslm_init_cuda: the CUDA kernel runs dof 6 or 4 without bounds; '
-            f'got dof={dof}, bounds={bounds is not None}')
+            f'rslm_init_cuda: the CUDA kernel runs dof 6 or 4; got {dof}')
     b, n, _ = x3d.shape
+    _check_bounds(bounds, b)
+    stride, n_sc = _score_layout(n, num_points, score_points, bounds)
     device = x3d.device
     if device.type != 'cuda':
         raise ValueError(f'rslm_init_cuda needs CUDA tensors, got {device}')
@@ -255,30 +269,34 @@ def rslm_init_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, seeds,
                            ('cam_fxfycxcy', cam_fxfycxcy, (b, 4)),
                            ('delta', delta, (b,))):
         _check(name, t, shape, device)
+    if bounds is not None:
+        _check('bounds', bounds, (b, 4), device)
     if (seeds.device != device or seeds.dtype != torch.int32
             or tuple(seeds.shape) != (b,) or not seeds.is_contiguous()):
         raise ValueError('seeds: expected a contiguous (B,) int32 tensor on '
                          f'{device}')
-    stride, n_sc = _score_layout(n, num_points, score_points)
     lib = load_library()
     pose = torch.empty((b, 4 if dof == 4 else 7), dtype=torch.float32,
                        device=device)
     cost = torch.empty((b,), dtype=torch.float32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.epropnp_rslm_init(
             ptr(seeds), ptr(x3d), ptr(x2d), ptr(w2d), ptr(cam_fxfycxcy),
-            ptr(delta), ptr(pose), ptr(cost), b, n, dof, num_points,
-            num_proposals, num_iter, stride, n_sc, z_min, eps,
+            ptr(delta), ptr(bounds), ptr(pose), ptr(cost), b, n, dof,
+            num_points, num_proposals, num_iter, stride, n_sc, z_min, eps,
             min_lm_diagonal, max_lm_diagonal, min_relative_decrease,
             initial_trust_region_radius, max_trust_region_radius,
             ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_rslm_init')
-    if packed_layout(n, num_points):
-        launches += 1
-    else:
+    if not packed_layout(n, num_points):
         launches_legacy += 1
+    elif bounds is not None:
+        launches_bounds += 1
+    else:
+        launches += 1
     return pose, cost
 
 

@@ -35,6 +35,7 @@ from ..ops.pnp import (
     RSLMSolver,
 )
 from ..ops.rotation_conversions import matrix_to_quaternion
+from ..utils.optim import OptaxOptimizer, all_finite, global_norm
 from .config import SixDoFConfig
 
 
@@ -118,52 +119,30 @@ def build_epropnp(cfg: SixDoFConfig) -> EProPnP6DoF:
 
 # --------------------------------------------------------------- optimizer
 
-class RMSprop(torch.optim.Optimizer):
+class RMSprop(OptaxOptimizer):
     """``optax.inject_hyperparams(optax.rmsprop)`` per parameter group,
     optionally after ``optax.clip_by_global_norm`` over all groups.
 
     Per element: ``nu = decay nu + (1 - decay) g^2`` (``nu`` starts at 0),
     ``u = -lr(count) g / sqrt(nu + eps)``, then the momentum trace
-    ``t = u + momentum t`` (identity at momentum 0). ``lr(count)`` is the
-    group's ``lr`` times every ``lr_factor`` whose boundary is <= the
-    group's update count (``optax.piecewise_constant_schedule``). A step
-    that is not taken (the non-finite skip) leaves every state, the count
-    included, unchanged.
+    ``t = u + momentum t`` (identity at momentum 0), with the step decay of
+    :meth:`OptaxOptimizer.learning_rate`.
     """
 
     def __init__(self, param_groups, decay: float = 0.99, eps: float = 1e-8,
                  momentum: float = 0.0, lr_boundaries=(),
                  lr_factor: float = 0.1,
                  clip_grad_norm: Optional[float] = None):
-        defaults = dict(lr=1e-4, decay=decay, eps=eps, momentum=momentum,
-                        lr_boundaries=tuple(lr_boundaries),
-                        lr_factor=lr_factor, count=0)
-        super().__init__(param_groups, defaults)
-        self.clip_grad_norm = clip_grad_norm
-
-    @staticmethod
-    def learning_rate(group) -> float:
-        lr = group['lr']
-        for boundary in sorted(group['lr_boundaries']):
-            if group['count'] >= boundary:
-                lr = lr * group['lr_factor']
-        return lr
-
-    def _grads(self):
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for g in self.param_groups for p in g['params']]
+        super().__init__(param_groups, dict(
+            lr=1e-4, decay=decay, eps=eps, momentum=momentum,
+            lr_boundaries=tuple(lr_boundaries), lr_factor=lr_factor),
+            clip_grad_norm)
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError('RMSprop.step takes no closure')
-        grads = self._grads()
-        if self.clip_grad_norm is not None:
-            norm = global_norm(grads)
-            keep = norm < self.clip_grad_norm
-            grads = [torch.where(keep, g, g / norm * self.clip_grad_norm)
-                     for g in grads]
-        it = iter(grads)
+        it = iter(self.clipped_grads())
         for group in self.param_groups:
             lr, decay = self.learning_rate(group), group['decay']
             for p in group['params']:
@@ -181,10 +160,6 @@ class RMSprop(torch.optim.Optimizer):
                         update)
                 p.add_(update)
             group['count'] += 1
-
-
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.square().sum() for t in tensors))
 
 
 def make_optimizer(cfg: SixDoFConfig, model: CDPN,
@@ -327,8 +302,7 @@ def make_train_step(epropnp: EProPnP6DoF, cfg: SixDoFConfig, cam_intrinsic):
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.model.parameters()]
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        ok = bool(finite)  # one host sync per step
+        ok = bool(all_finite(grads))  # one host sync per step
         if ok:
             state.tx.step()
         with torch.no_grad():

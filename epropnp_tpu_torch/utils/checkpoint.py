@@ -18,7 +18,8 @@ import torch
 
 
 def save_checkpoint(path: str, state) -> str:
-    """``state``: a module with a ``tx`` optimizer (``TrainState``)."""
+    """``state``: a module with a ``tx`` optimizer (``sixdof.train.
+    TrainState`` or ``det.train.DetTrainState``)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + '.tmp'
     torch.save({'state': state.state_dict(),
@@ -32,7 +33,8 @@ def load_checkpoint(path: str, state,
     """Restore ``state`` in place from ``path`` and return it.
 
     ``filter_fn(key)`` picks among the top-level entries ``'params'``
-    (parameters), ``'batch_stats'`` (BatchNorm buffers), ``'mc_state'``,
+    (parameters), ``'batch_stats'`` (BatchNorm buffers), ``'mc_state'``
+    (the 6DoF ``norm_factor``), ``'ema'`` (the Det ``ema_*`` buffers),
     ``'step'`` and ``'opt_state'``; None restores all of them.
     """
     data = torch.load(path, map_location='cpu', weights_only=True)
@@ -44,6 +46,8 @@ def load_checkpoint(path: str, state,
             return 'params'
         if name == 'norm_factor':
             return 'mc_state'
+        if name.startswith('ema_'):
+            return 'ema'
         if name == 'step':
             return 'step'
         return 'batch_stats'

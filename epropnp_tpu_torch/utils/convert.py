@@ -2,13 +2,13 @@
 
 ``cdpn_state_dict`` and ``det_state_dict`` are the exact inverses of
 ``epropnp_tpu/utils/torch_convert.py::cdpn_variables`` and
-``::det_model_variables``; ``cdpn_variables`` maps the port's CDPN state
-back to the flax names (a training state, or its gradients, compared with
-the JAX package's). The first two take the flax variables of the JAX models
-as nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``)
-and return the state dicts of the port's ``CDPN`` and ``EProPnPDet``,
-whose keys are the reference checkpoints'. Layout rules (the converter's,
-reversed):
+``::det_model_variables``; ``cdpn_variables`` and ``det_variables`` map
+the port's CDPN and EProPnPDet states back to the flax names (a training
+state, or its gradients, compared with the JAX package's). The first two
+take the flax variables of the JAX models as nested dicts of numpy arrays
+(``{'params': ..., 'batch_stats': ...}``) and return the state dicts of
+the port's ``CDPN`` and ``EProPnPDet``, whose keys are the reference
+checkpoints'. Layout rules (the converter's, reversed):
 
 - Conv kernel (kH, kW, I, O)          -> Conv2d weight (O, I, kH, kW)
 - ConvTranspose kernel (kH, kW, I, O) -> ConvTranspose2d weight
@@ -372,3 +372,161 @@ def det_state_dict(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
 
 def _float32_if_bf16(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32) if a.dtype.name == 'bfloat16' else a
+
+
+def _flax_deform_conv(sd: Dict, name: str) -> Dict:
+    """mmcv DCNv2 entries -> flax ``DeformConv`` params: the kernel
+    flattened tap-major to (9 I, O), the conv_offset's (dy, dx) output
+    pairs swapped to (dx, dy), a zero bias where mmcv has none."""
+    w = sd[f'{name}.weight']
+    c_out, c_in = w.shape[:2]
+    kernel = np.transpose(w, (2, 3, 1, 0)).reshape(9 * c_in, c_out)
+    off_w = sd[f'{name}.conv_offset.weight'][_DCN_PAIR_SWAP]
+    return {'kernel': np.ascontiguousarray(kernel),
+            'bias': sd.get(f'{name}.bias', np.zeros(c_out, w.dtype)),
+            'conv_offset': {
+                'kernel': np.ascontiguousarray(
+                    np.transpose(off_w, (2, 3, 1, 0))),
+                'bias': sd[f'{name}.conv_offset.bias'][_DCN_PAIR_SWAP]}}
+
+
+def det_variables(sd: Dict[str, np.ndarray], cfg) -> Dict:
+    """The port's ``EProPnPDet`` state dict (numpy) -> flax EProPnPDet
+    variables ``{'params': ..., 'batch_stats': ...}``, the inverse of
+    :func:`det_state_dict` (a training state, or its gradients, compared
+    with the JAX package's). ``cfg`` is a ``det.config.DetConfig``.
+
+    The flax ``DeformConv`` has a bias that mmcv's DCNs (backbone, FCOS
+    towers) lack: it comes back as zeros. Entries without running
+    statistics (a dict of gradients) give no ``batch_stats`` for their
+    BatchNorms.
+    """
+    def conv(name, bias=True):
+        out = {'kernel': np.ascontiguousarray(
+            np.transpose(sd[f'{name}.weight'], (2, 3, 1, 0)))}
+        if bias and f'{name}.bias' in sd:
+            out['bias'] = sd[f'{name}.bias']
+        return out
+
+    def dense(name):
+        return {'kernel': np.ascontiguousarray(sd[f'{name}.weight'].T),
+                'bias': sd[f'{name}.bias']}
+
+    def norm(name):
+        return {'scale': sd[f'{name}.weight'], 'bias': sd[f'{name}.bias']}
+
+    block_name, stage_sizes, _ = resnet_spec[cfg.backbone_depth]
+    n_convs = 2 if block_name == 'basic' else 3
+    bp, bs = {'conv1': conv('backbone.conv1')}, {}
+    _flax_bn(bp, bs, sd, 'backbone.bn1', 'bn1')
+    for stage, n_blocks in enumerate(stage_sizes, start=1):
+        for i in range(n_blocks):
+            t, f = f'backbone.layer{stage}.{i}', f'layer{stage}_block{i}'
+            p, st = {}, {}
+            if f'{t}.conv2.conv_offset.weight' in sd:
+                p['Conv_0'] = conv(f'{t}.conv1')
+                p['DeformConv_0'] = _flax_deform_conv(sd, f'{t}.conv2')
+                p['Conv_1'] = conv(f'{t}.conv3')
+            else:
+                for j in range(n_convs):
+                    p[f'Conv_{j}'] = conv(f'{t}.conv{j + 1}')
+            for j in range(n_convs):
+                _flax_bn(p, st, sd, f'{t}.bn{j + 1}', f'BatchNorm_{j}')
+            if f'{t}.downsample.0.weight' in sd:
+                p['downsample_conv'] = conv(f'{t}.downsample.0')
+                _flax_bn(p, st, sd, f'{t}.downsample.1',
+                         f'BatchNorm_{n_convs}')
+            bp[f] = p
+            if st:
+                bs[f] = st
+
+    neck = {}
+    n_lat = sum(k.startswith('neck.lateral_convs.') and k.endswith('.weight')
+                for k in sd)
+    for i in range(n_lat):
+        neck[f'lateral_{i}'] = conv(f'neck.lateral_convs.{i}.conv')
+        neck[f'fpn_conv_{i}'] = conv(f'neck.fpn_convs.{i}.conv')
+    for j in range(len(cfg.strides) - n_lat):
+        neck[f'extra_conv_{j}'] = conv(f'neck.fpn_convs.{n_lat + j}.conv')
+
+    p = 'bbox_head.'
+    det, d = {}, f'{p}detector.'
+    for tower, ours in (('cls_convs', 'cls'), ('reg_convs', 'reg')):
+        i = 0
+        while f'{d}{tower}.{i}.gn.weight' in sd:
+            t = f'{d}{tower}.{i}'
+            if f'{t}.conv.conv_offset.weight' in sd:
+                det[f'{ours}_dcn{i}'] = _flax_deform_conv(sd, f'{t}.conv')
+            else:
+                det[f'{ours}_conv{i}'] = conv(f'{t}.conv', bias=False)
+            det[f'{ours}_gn{i}'] = norm(f'{t}.gn')
+            i += 1
+    for torch_br, ours in (('conv_cls_prev', 'cls_br'),
+                           ('conv_centerness_prev', 'ctr_br'),
+                           ('conv_offset_prev', 'off_br'),
+                           ('conv_emb_prev', 'emb_br')):
+        j = 0
+        while f'{d}{torch_br}.{j}.conv.weight' in sd:
+            det[f'{ours}_conv{j}'] = conv(f'{d}{torch_br}.{j}.conv',
+                                          bias=False)
+            det[f'{ours}_gn{j}'] = norm(f'{d}{torch_br}.{j}.gn')
+            j += 1
+    for name in ('conv_cls', 'conv_centerness', 'conv_offset'):
+        det[name] = conv(f'{d}{name}')
+    det['conv_emb'] = conv(f'{d}conv_emb.conv', bias=False)
+    det['conv_emb_gn'] = norm(f'{d}conv_emb.gn')
+
+    s = f'{p}attention_sampler.'
+    head = {
+        'detector': det,
+        'attention_sampler': {
+            'sampling_offsets': dense(f'{s}sampling_offsets'),
+            'out_proj': dense(f'{s}out_proj'),
+            'norm1': norm(f'{s}layer_norms.0'),
+            'ffn1': dense(f'{s}ffn.layers.0.0'),
+            'ffn2': dense(f'{s}ffn.layers.1'),
+            'norm2': norm(f'{s}layer_norms.1')},
+        'conv_upsampled': conv(f'{p}conv_upsampled.conv', bias=False),
+        'conv_upsampled_gn': norm(f'{p}conv_upsampled.gn'),
+        'k_proj': conv(f'{p}k_proj'),
+        'v_proj': conv(f'{p}v_proj'),
+        'query_scale': sd[f'{p}query_scale.scale'],
+    }
+    for name in ('query_proj', 'dim_branch', 'score_branch', 'scale_branch',
+                 'x2d_pos_enc', 'velo_branch', 'attr_branch'):
+        if f'{p}{name}.weight' in sd:
+            head[name] = dense(f'{p}{name}')
+    if f'{p}cls_emb' in sd:
+        head['cls_emb'] = sd[f'{p}cls_emb']
+    i = 0
+    while f'{p}convs.{i}.conv.weight' in sd:
+        head[f'dense_conv{i}'] = conv(f'{p}convs.{i}.conv', bias=False)
+        i += 1
+    i = 0
+    while f'{p}pred_fc.{2 * i}.weight' in sd:
+        head[f'pred_fc{i}'] = dense(f'{p}pred_fc.{2 * i}')
+        i += 1
+    i = 0
+    while f'{p}pts_trans.{i}.norms.0.weight' in sd:
+        t = f'{p}pts_trans.{i}.'
+        head[f'obj_query_scale{i}'] = sd[f'{p}obj_query_scale.{i}.scale']
+        w = sd[f'{t}attentions.0.attn.in_proj_weight']
+        b = sd[f'{t}attentions.0.attn.in_proj_bias']
+        e = w.shape[1]
+        tr = {name: {'kernel': np.ascontiguousarray(w[j * e:(j + 1) * e].T),
+                     'bias': b[j * e:(j + 1) * e]}
+              for j, name in enumerate(('q_proj', 'k_proj', 'v_proj'))}
+        tr['out_proj'] = dense(f'{t}attentions.0.attn.out_proj')
+        tr['norm1'] = norm(f'{t}norms.0')
+        tr['ffn1'] = dense(f'{t}ffns.0.layers.0.0')
+        tr['ffn2'] = dense(f'{t}ffns.0.layers.1')
+        tr['norm2'] = norm(f'{t}norms.1')
+        head[f'pts_trans{i}'] = tr
+        i += 1
+    i = 0
+    while f'{p}corr_regs.{i}.weight' in sd:
+        head[f'corr_reg{i}'] = {'weight': sd[f'{p}corr_regs.{i}.weight'],
+                                'bias': sd[f'{p}corr_regs.{i}.bias']}
+        i += 1
+    return {'params': {'backbone': bp, 'neck': neck, 'head': head},
+            'batch_stats': {'backbone': bs}}

@@ -1,8 +1,11 @@
-"""Synthetic PnP problems for the port's tests and smoke run (numpy only).
+"""Synthetic PnP problems and training batches for the port's tests and
+smoke run (numpy only).
 
 :func:`make_pnp_problem` is ``bench.make_problem`` at any size, with the
 same draw order (so ``make_pnp_problem(1024, 512, seed)`` gives the bench's
 points for that seed), plus a perturbed ground-truth pose as a solver init.
+:func:`make_det_batch` is the Det training batch of
+``tests/test_det_train.py::make_batch`` at any size.
 """
 
 from __future__ import annotations
@@ -163,3 +166,67 @@ def make_bounded_pnp_problem(b: int, n: int, seed: int, dof: int = 6,
     x2d_std = np.sqrt(p['x2d'].var(axis=1, ddof=1).sum(-1))
     p['delta'] = p['w2d'].mean(axis=(1, 2)) * x2d_std * 0.1
     return p
+
+
+DET_BATCH_FIELDS = (
+    'img', 'cam_intrinsic', 'img_shapes', 'ori_shapes', 'img_flips',
+    'img_dense_x2d', 'img_dense_x2d_mask', 'gt_bboxes', 'gt_bboxes_3d',
+    'gt_labels', 'gt_mask', 'gt_velo', 'gt_attr', 'gt_x3d', 'gt_x2d',
+    'gt_pts_mask')
+
+
+def make_det_batch(seed: int, n_img: int = 2, h: int = 64, w: int = 64,
+                   gmax: int = 4, pmax: int = 16, n_valid: int = 2,
+                   cam=None, x_range=(-1.0, 1.0), depth=(5.0, 9.0),
+                   num_classes: int = 3, num_attrs: int = 4) -> dict:
+    """A Det training batch (the fields of ``det.train.DetBatch``, numpy):
+    ``n_valid`` GT boxes per image (of ``gmax`` slots) in front of the
+    camera, at lateral offset ``x_range`` and depth ``depth`` (m), with
+    ``pmax`` lidar points each, random images and an identity dense x2d
+    map; odd images are flagged flipped. With the defaults it is
+    ``tests/test_det_train.py::make_batch`` draw for draw (``cam`` None:
+    focal 60 at the image centre)."""
+    r = np.random.default_rng(seed)
+    k = (np.array([[60., 0., w / 2], [0., 60., h / 2], [0., 0., 1.]])
+         if cam is None else np.asarray(cam, np.float64))
+    xs, ys = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5)
+    dense = np.stack([xs, ys], -1)[None].repeat(n_img, 0)
+    g3d = np.zeros((n_img, gmax, 7), np.float32)
+    g2d = np.zeros((n_img, gmax, 4), np.float32)
+    mask = np.zeros((n_img, gmax), bool)
+    velo = r.normal(0, 1, (n_img, gmax, 2)).astype(np.float32)
+    x3dp = np.zeros((n_img, gmax, pmax, 3), np.float32)
+    x2dp = np.zeros((n_img, gmax, pmax, 2), np.float32)
+    pmask = np.zeros((n_img, gmax, pmax), bool)
+    for i in range(n_img):
+        for g in range(n_valid):
+            t = np.array([r.uniform(*x_range), r.uniform(-0.3, 0.3),
+                          r.uniform(*depth)])
+            dims = r.uniform(1.0, 2.5, 3)
+            g3d[i, g] = [*dims, *t, r.uniform(-np.pi, np.pi)]
+            uv = k @ t
+            c = uv[:2] / uv[2]
+            half = k[0, 0] * dims[[0, 1]].max() / t[2] / 2
+            g2d[i, g] = [c[0] - half, c[1] - half, c[0] + half, c[1] + half]
+            g2d[i, g, 0::2] = g2d[i, g, 0::2].clip(0, w - 1)
+            g2d[i, g, 1::2] = g2d[i, g, 1::2].clip(0, h - 1)
+            mask[i, g] = True
+            pts = r.uniform(-0.5, 0.5, (pmax, 3)) * dims
+            x3dp[i, g] = pts
+            uvp = (pts + t) @ k.T
+            x2dp[i, g] = uvp[:, :2] / uvp[:, 2:]
+            pmask[i, g] = True
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(
+        img=f32(r.normal(size=(n_img, h, w, 3))),
+        cam_intrinsic=f32(np.tile(k, (n_img, 1, 1))),
+        img_shapes=np.tile(f32([h, w]), (n_img, 1)),
+        ori_shapes=np.tile(f32([h, w]), (n_img, 1)),
+        img_flips=np.array([i % 2 == 1 for i in range(n_img)]),
+        img_dense_x2d=f32(dense),
+        img_dense_x2d_mask=np.ones((n_img, h, w, 1), np.float32),
+        gt_bboxes=g2d, gt_bboxes_3d=g3d,
+        gt_labels=r.integers(0, num_classes, (n_img, gmax)),
+        gt_mask=mask, gt_velo=velo,
+        gt_attr=r.integers(0, num_attrs, (n_img, gmax)),
+        gt_x3d=x3dp, gt_x2d=x2dp, gt_pts_mask=pmask)

@@ -125,6 +125,8 @@ def test_dcn_bottleneck_stride2_matches_flax():
 
 
 def test_dcn_wrapper_refuses_what_it_does_not_run():
+    """The wrapper refuses other devices, and a gradient through the bf16,
+    int8 and level-table variants (forward only); the f32 map takes one."""
     r = np.random.default_rng(0)
     x = torch.from_numpy(r.normal(size=(1, 6, 6, 16)).astype(np.float32))
     om = torch.zeros(1, 6, 6, 27)
@@ -136,8 +138,17 @@ def test_dcn_wrapper_refuses_what_it_does_not_run():
         with torch.no_grad():
             dcn_kernel.dcn_forward(x.to('meta'), om.to('meta'),
                                    weight.to('meta'))
+    w_grad = weight.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match='forward only'):
-        dcn_kernel.dcn_forward(x, om, weight.requires_grad_())
+        dcn_kernel.dcn_forward(x.bfloat16(), om, w_grad.bfloat16())
+    with pytest.raises(NotImplementedError, match='forward only'):
+        q, w_scaled = dcn_kernel.quantize_nhwc(
+            x, dcn_kernel.kernel_weight(w_grad))
+        dcn_kernel.dcn_forward(q, om, w_scaled)
+    with pytest.raises(NotImplementedError, match='forward only'):
+        dcn_kernel.dcn_forward(x, om, w_grad, levels=[(0, 0, 6, 6)])
+    out = dcn_kernel.dcn_forward(x, om, w_grad)
+    assert out.grad_fn is not None
     with torch.no_grad():  # the twin: zero offsets, mask 0 -> mod = 1
         out = dcn_kernel.dcn_forward(x, om, weight, modulation_scale=2.0)
     plain = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight,
@@ -206,3 +217,78 @@ def test_int8_twin_matches_pallas_int8(stride, monkeypatch):
     if stride == 'packed':  # zeros in the gaps, as the JAX canvas
         gaps = layout.mask().numpy()[..., 0] == 0
         assert (out[:, gaps] == 0).all()
+
+
+def _dcn_grad_problem(stride, seed=0, n=2, h=7, w=9, c=8, cout=6):
+    """f64 inputs whose offsets reach past the map (a tenth of the corner
+    samples fall off it)."""
+    r = np.random.default_rng(seed)
+    ho, wo = dcn_kernel.output_hw(h, w, stride)
+    x = torch.from_numpy(r.normal(size=(n, h, w, c)))
+    om = torch.from_numpy(r.normal(size=(n, ho, wo, 27)) * 2.0)
+    weight = torch.from_numpy(r.normal(size=(cout, c, 3, 3)))
+    bias = torch.from_numpy(r.normal(size=(cout,)))
+    ct = torch.from_numpy(r.normal(size=(n, ho, wo, cout)))
+    _, w4 = dcn_kernel.corner_rows_and_weights(om, (0, 0, h, w), (h, w),
+                                               stride, 2.0)
+    assert 0.02 < float((w4 == 0).double().mean()) < 0.5
+    return x, om, weight, bias, ct
+
+
+@pytest.mark.parametrize('chunk_rows', [7, dcn_kernel.BWD_CHUNK_ROWS])
+@pytest.mark.parametrize('stride', [1, 2])
+def test_dcn_backward_matches_autograd_of_the_twin(stride, chunk_rows):
+    """``dcn_backward``, streamed in chunks of 7 output rows or whole,
+    against torch autograd through ``dcn_reference`` (f64, 1e-12 of the
+    largest entry)."""
+    x, om, weight, bias, ct = _dcn_grad_problem(stride, seed=stride)
+    leaves = [t.clone().requires_grad_() for t in (x, om, weight, bias)]
+    out = dcn_kernel.dcn_reference(*leaves, stride=stride)
+    ref = torch.autograd.grad(out, leaves, ct)
+    got = dcn_kernel.dcn_backward(x, om, dcn_kernel.kernel_weight(weight),
+                                  ct, stride, 2.0, chunk_rows=chunk_rows)
+    got = (got[0], got[1], got[2].reshape(3, 3, 8, 6).permute(3, 2, 0, 1),
+           got[3])
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.parametrize('chunk_rows', [5, dcn_kernel.BWD_CHUNK_ROWS])
+@pytest.mark.parametrize('stride', [1, 2])
+def test_deform_conv_gradients_match_jax(stride, chunk_rows, monkeypatch):
+    """Gradients through the port's ``DeformConv`` (``DCNFunction``: the
+    twin's forward, ``dcn_backward``) against ``jax.grad`` of the flax
+    ``DeformConv`` (jnp path), f64, for the input, the kernel, the bias and
+    the offset conv: rtol 1e-9 of each tensor's largest entry. Offsets of a
+    few pixels put samples off the map."""
+    monkeypatch.setattr(dcn_kernel, 'BWD_CHUNK_ROWS', chunk_rows)
+    r = np.random.default_rng(40 + stride)
+    x = r.normal(size=(2, 7, 9, 8))
+    m = FlaxDeformConv(6, strides=stride, fused=False, dtype=jnp.float64)
+    vs = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                _randomize(m.init(jax.random.PRNGKey(0),
+                                                  jnp.asarray(x)), 5,
+                                           scale=0.3))
+    ct = r.normal(size=m.apply(vs, jnp.asarray(x)).shape)
+
+    def loss(params, xx):
+        return jnp.sum(m.apply({'params': params}, xx) * ct)
+
+    g_params, g_x = jax.grad(loss, argnums=(0, 1))(vs['params'],
+                                                   jnp.asarray(x))
+    mod = _port_deform_conv(vs['params'], 8, 6, stride).double()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = mod(xt)
+    (out * torch.from_numpy(ct)).sum().backward()
+    sd = {}
+    convert._deform_conv(sd, 'm', jax.tree_util.tree_map(np.asarray,
+                                                         g_params),
+                         bias=True)
+    pairs = [(xt.grad, np.asarray(g_x))] + [
+        (p.grad, sd['m.' + name]) for name, p in mod.named_parameters()]
+    assert len(pairs) == 5
+    for got, ref in pairs:
+        assert got.shape == ref.shape
+        assert float(np.abs(got.numpy() - ref).max()) \
+            <= 1e-9 * float(np.abs(ref).max())

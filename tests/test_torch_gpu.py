@@ -351,3 +351,115 @@ def test_train_step_on_card_launches_k1_twice(cuda_device):
     assert any(not torch.equal(v, before[k])
                for k, v in model.state_dict().items()
                if k.endswith('weight'))
+
+
+@pytest.mark.parametrize('b', [288, 1536])
+def test_rslm_kernel_bounds_matches_twin(cuda_device, b):
+    """K2 with projection bounds at the Det training shape (dof 4, N=128,
+    64 proposals x 16 points x 3 iterations; B=288 is one v1b step's
+    objects), by chip_smoke.py phase l's rules over as many seeded problems
+    as make ~6000 objects: 99% of the objects on the twin's cost at rtol
+    1e-4 (the twin replays the Philox stream), or the kernel as close to
+    the f64 twin as the f32 twin is (less 0.005); the returned cost is the
+    bounded cost of the returned pose; the median within 2x of the twin's.
+    Pooled, because which of two near-tied proposals wins is decided by
+    f32 rounding: on one problem of 288 objects the kernel's and the f32
+    twin's shares of objects on the f64 cost differ by a few percent
+    either way, and pooled they meet (chip_smoke.py phase l, PERF.md)."""
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    costs = []
+    for seed in range(21, 21 + -(-6000 // b)):
+        p = make_bounded_pnp_problem(b, 128, seed, 4)
+        t = {k: torch.tensor(v, dtype=torch.float32, device=cuda_device)
+             for k, v in p.items()}
+        cam4 = lm_kernel.camera_to_fxfycxcy(t['cams']).contiguous()
+        seeds = torch.arange(b, dtype=torch.int32, device=cuda_device) * 7919
+        args = (t['x3d'], t['x2d'], t['w2d'], cam4, t['delta'], seeds)
+        kw = dict(bounds=t['bounds'], dof=4, num_points=16,
+                  num_proposals=64, num_iter=3, z_min=0.1, score_points=128)
+        before = rslm_kernel.launches_bounds
+        pk, ck = rslm_kernel.rslm_init(*args, **kw)
+        assert rslm_kernel.launches_bounds == before + 1
+        _, ct = rslm_kernel.rslm_init_reference(*args, **kw)
+        _, c64 = rslm_kernel.rslm_init_reference(
+            *(a.double() for a in args[:5]), seeds,
+            **dict(kw, bounds=t['bounds'].double()))
+        assert torch.isfinite(pk).all() and torch.isfinite(ck).all()
+        camera = tpnp.PerspectiveCamera(cam_mats=t['cams'], z_min=0.1,
+                                        lb=t['bounds'][:, :2],
+                                        ub=t['bounds'][:, 2:])
+        ev = tpnp.evaluate_pnp(t['x3d'], t['x2d'], t['w2d'], pk, camera,
+                               tpnp.HuberPnPCost(delta=t['delta']),
+                               out_cost=True).cost
+        assert torch.isclose(ck, ev, rtol=1e-3, atol=0).all()
+        assert ck.median() <= 2 * ct.median()
+        costs.append((ck, ct, c64))
+    ck, ct, c64 = (torch.cat(c) for c in zip(*costs))
+    assert _frac_close(ck, ct) >= 0.99 or _frac_close(ck, c64) >= \
+        _frac_close(ct, c64) - 0.005
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_dcn_backward_on_card_matches_autograd_of_the_twin(cuda_device,
+                                                           stride):
+    """Gradients through K3's ``autograd.Function`` on the card (the
+    kernel's forward, ``dcn_backward``) against torch autograd through
+    ``dcn_reference`` (f32): max|d| <= 2.2e-4 max|ref| for the map, the raw
+    offsets, the weight and the bias (chip_smoke.py phase m's rule)."""
+    r = np.random.default_rng(stride)
+    n, h, w, c, cout = 2, 13, 17, 32, 16
+    ho, wo = dcn_kernel.output_hw(h, w, stride)
+    make = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        r.normal(size=s) * scale, dtype=torch.float32, device=cuda_device)
+    x, om = make(n, h, w, c), make(n, ho, wo, 27, scale=1.5)
+    weight, bias = make(cout, c, 3, 3, scale=0.1), make(cout)
+    ct = make(n, ho, wo, cout)
+    grads = []
+    for fn in (dcn_kernel.dcn_forward, dcn_kernel.dcn_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, om, weight, bias)]
+        before = dcn_kernel.launches
+        out = fn(*leaves, stride=stride)
+        assert dcn_kernel.launches == before + (
+            fn is dcn_kernel.dcn_forward)
+        grads.append(torch.autograd.grad(out, leaves, ct))
+    for got, ref in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 2.2e-4 * ref.abs().max()
+
+
+def test_det_train_step_on_card_launches_its_kernels(cuda_device):
+    """One Det training step on the card at a reduced width that still
+    meets the fused-init gate (8 heads x 16 points = N 128, 8 objects x 64
+    proposals): K2 runs twice with bounds (the Monte Carlo forward's init
+    and the score solve), K1 twice in its training modes, K3-f32 once per
+    tower DCN and level; finite losses; the parameters move."""
+    from epropnp_tpu_torch.det import config, main
+    from epropnp_tpu_torch.utils.synthetic import (DET_BATCH_FIELDS,
+                                                   make_det_batch)
+    cfg = config.DetConfig(
+        num_classes=3, backbone_depth=18, embed_dims=64, num_heads=8,
+        num_points=16, strides=(8, 16, 32, 64), output_stride=8,
+        num_attrs=4,
+        pnp=config.DetPnPConfig(mc_samples=16, num_iter=2, use_pallas=True),
+        train=config.DetTrainConfig(num_obj_samples_per_img=4,
+                                    roi_shape=(8, 8), max_gt_per_img=4))
+    model, step_fn = main.build_all(cfg, cuda_device)
+    state = main.init_state(cfg, model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    b = make_det_batch(0, 2, 128, 128)
+    batch = main.to_device(tuple(b[k] for k in DET_BATCH_FIELDS),
+                           cuda_device)
+    counts = (rslm_kernel.launches_bounds, lm_kernel.launches_train,
+              lm_kernel.launches, dcn_kernel.launches)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    metrics = step_fn(state, batch, gen)
+    torch.cuda.synchronize()
+    assert rslm_kernel.launches_bounds == counts[0] + 2
+    assert lm_kernel.launches_train == counts[1] + 2
+    assert lm_kernel.launches == counts[2]
+    assert dcn_kernel.launches == counts[3] + 2 * 4  # 2 towers x 4 levels
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert int(metrics['skipped']) == 0
+    assert any(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items()
+               if k.endswith('weight'))

@@ -304,7 +304,8 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.utils.synthetic, '
             'epropnp_tpu_torch.sixdof.main, '
             'epropnp_tpu_torch.demo.fit_identity, '
-            'epropnp_tpu_torch.ops.rotation_conversions; '
+            'epropnp_tpu_torch.ops.rotation_conversions, '
+            'epropnp_tpu_torch.det.main, epropnp_tpu_torch.utils.optim; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')

@@ -177,21 +177,27 @@ def test_rslm_wrappers_refuse_what_they_do_not_run():
 
 @pytest.mark.parametrize('option', ['dof4', 'bounds'])
 def test_rslm_kernel_refuses_options_not_ported(option):
-    """The CUDA kernel runs dof 6 and 4 without bounds: its wrapper raises
-    on bounds before it looks at the device, and takes dof 4 as far as the
-    device check (the twin takes both)."""
+    """The CUDA kernel runs dof 6 and 4, with or without (B, 4) projection
+    bounds: its wrapper takes both as far as the device check, and refuses
+    malformed bounds (and bounds at shapes of the legacy layout) before it
+    looks at the device; the twin takes the same."""
     x3d, x2d, w2d, cam = (torch.from_numpy(a)
                           for a in make_problem(bs=2, n=128))
     args = (x3d, x2d, w2d, camera_to_fxfycxcy(cam).contiguous(),
             torch.ones(2), torch.zeros(2, dtype=torch.int32))
     kw = (dict(dof=4) if option == 'dof4' else
           dict(bounds=torch.tensor([[0., 0., 640., 480.]] * 2)))
-    if option == 'dof4':
-        with pytest.raises(ValueError, match='CUDA tensors'):
-            rslm_kernel.rslm_init_cuda(*args, **kw)
-    else:
-        with pytest.raises(NotImplementedError, match='without bounds'):
-            rslm_kernel.rslm_init_cuda(*args, **kw)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        rslm_kernel.rslm_init_cuda(*args, **kw)
+    if option == 'bounds':
+        for bad in (torch.tensor([[0., 640.]] * 2),
+                    torch.tensor([[0., 0., 640., 480.]] * 3),
+                    [[0., 0., 640., 480.]] * 2):
+            for fn in (rslm_kernel.rslm_init_cuda, rslm_kernel.rslm_init):
+                with pytest.raises(ValueError, match='bounds'):
+                    fn(*args, bounds=bad)
+        with pytest.raises(ValueError, match='packed layout'):
+            rslm_kernel.rslm_init_cuda(*args, num_points=24, **kw)
     pose, cost = rslm_kernel.rslm_init(*args, num_proposals=8, **kw)
     assert torch.isfinite(pose).all() and torch.isfinite(cost).all()
 
