@@ -31,10 +31,14 @@ d. The bench problem (``utils.synthetic.make_problem``, a copy of
    kernel path against twin path.
 e. K3 against its twin (and an f64 twin) at the Det serving shapes
    (672x1600 x 6 images): a backbone stage-3 layer at stride 1 and its
-   stride-2 first block, a stage-4 layer, FCOS level 0.
+   stride-2 first block, a stage-4 layer, FCOS level 0; beside each time
+   its share of the bound and one f32 ``torch.matmul`` of the pre-sampled
+   (L, 9c) stack (a yardstick the port never calls).
 e+. K3's int8 variant (bf16 weight) and bf16 variant at the v1b_serving
    shapes: the stage-3 layer, the stride-2 first block and stage 4, and
-   the int8 variant on the packed FCOS canvas (5 levels, one launch).
+   the int8 variant on the packed FCOS canvas (5 levels, one launch);
+   beside each time its share of the bound and the bf16 product of the
+   pre-sampled stack.
 f. K1 at dof 4 with projection bounds in fast mode (the Det solve) against
    its twin (and an f64 twin) at (98304, 16) x 3 and (1536, 128) x 5.
 g. Det serving: EPro-PnP-Det v1b (ResNet-101-DCN, FPN, FCOSEmbHead,
@@ -81,15 +85,22 @@ n. Det training: ``det.main.train_loop`` at ``DetConfig.v1b()`` width with
 
 Every launch counter is set to 0 just before each path that a user's
 call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k and n)
-and read just after it. Each phase's wall time is printed. Earlier lines print each phase's numbers, the card's
-``nvidia-smi`` name and power limit, and one JSON object with a row per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+and read just after it. Each phase's wall time is printed. Earlier lines
+print each phase's numbers, the card's ``nvidia-smi`` name and power
+limit, and one JSON object with a row per kernel; the last line is
+``{"ok": true, "device": {...}}``. The run fails if ptxas reports spill
+bytes for a K3 instance (a ``dcn_forward`` entry of the build log).
+
+``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
+i, l, m), not the main run, and prints no ``ok`` line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -184,6 +195,24 @@ def gpu_name_and_limit() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def k3_spills(log_text: str):
+    """Spill bytes (stores + loads) that ptxas reports for each K3 kernel
+    instance (an entry whose name holds ``dcn_forward``) in a build log."""
+    spills, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name is not None:
+            if 'dcn_forward' in name:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return spills
 
 
 def pnp_problem(torch, device, b, n, seed, init_noise):
@@ -755,8 +784,7 @@ def phase_e(torch, device):
             plain_ms = time_ms(torch, run_t, warmup=1, iters=3)
             # yardstick of the contraction part only: one product of the
             # pre-sampled (L, 9c) stack (not a port of the kernel)
-            sampled = sum(x.reshape(-1, c)[rows_[..., k]] * w4[..., k, None]
-                          for k in range(4)).reshape(-1, 9 * c)
+            sampled = k3.sampled_stack(x, om, stride)
             w_flat = w3.reshape(9 * c, cout)
             mm_ms = time_ms(torch, lambda: torch.matmul(sampled, w_flat),
                             warmup=2, iters=10)
@@ -771,7 +799,7 @@ def phase_e(torch, device):
                    max_abs_err=err, max_abs_twin=scale,
                    f64_err_kernel=err64_k, f64_err_twin=err64_t, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   matmul_of_sampled_stack_ms=mm_ms,
+                   bound_share=bound / ms, matmul_of_sampled_stack_ms=mm_ms,
                    tflops=flops / ms / 1e9)
         print('phase e: K3 ' + json.dumps(row))
         assert err <= K3_REL * scale, f'K3 disagrees with its twin: {what}'
@@ -833,6 +861,13 @@ def phase_e_variants(torch, device):
         with torch.no_grad():
             ref32 = k3.dcn_reference(xb.float(), om, w3, None, stride, 2.0,
                                      levels)
+            # yardstick of the contraction part only: one bf16 product of
+            # the pre-sampled (L, 9c) stack (not a port of the kernel)
+            stack = k3.sampled_stack(xb, om, stride, 2.0, levels).to(bf16)
+            w_flat = w3.to(bf16).reshape(9 * c, cout)
+            mm_ms = time_ms(torch, lambda: torch.matmul(stack, w_flat),
+                            warmup=2, iters=10)
+            del stack
             for variant in variants:
                 if variant == 'int8':
                     xv, w3v = k3.quantize_nhwc(xb, w3.to(bf16))
@@ -871,6 +906,8 @@ def phase_e_variants(torch, device):
                            jax_budget=K3_INT8_JAX_BUDGET, ms=ms,
                            plain_ms=plain_ms,
                            bound_ms=bound, bound_by=by,
+                           bound_share=bound / ms,
+                           matmul_of_sampled_stack_ms=mm_ms,
                            tflops=flops / ms / 1e9)
                 print('phase e+: K3 ' + json.dumps(row))
                 assert err <= K3_VARIANT_REL * scale, \
@@ -2068,7 +2105,7 @@ def profile_det_train_step(torch, fn):
         wall_ms=wall, device_busy_ms=busy,
         device_idle_share=max(0.0, 1.0 - busy / wall),
         dense_forward_ms=ranges['dense forward'],
-        k3_ms=kernel_share(kernels, self_dev, 'dcn_forward_kernel'),
+        k3_ms=kernel_share(kernels, self_dev, 'dcn_forward'),
         dcn_backward_ms=ranges['dcn backward'], k1_ms=k1, k2_ms=k2,
         amis_forward_without_k1_k2_ms=ranges['amis forward'] - k1 - k2,
         optimizer_ms=ranges['optimizer'],
@@ -2167,7 +2204,12 @@ def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
                     torch, lambda: step(state, batch, gen)))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--only', default=None,
+                        help='comma-separated kernel phases to run alone')
+    only = parser.parse_args(argv).only
+    only = None if only is None else set(only.split(','))
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; nothing run',
@@ -2191,12 +2233,17 @@ def main() -> int:
     print(f'build: {os.path.relpath(lib_path, REPO)} in '
           f'{time.perf_counter() - t0:.1f} s')
     with open(lib_path + '.log') as f:
-        for line in f:
-            if 'registers' in line or 'spill' in line or 'Compiling' in line:
-                print('ptxas: ' + line.strip())
+        log = f.read()
+    for line in log.splitlines():
+        if 'registers' in line or 'spill' in line or 'Compiling' in line:
+            print('ptxas: ' + line.strip())
     print(gpu_name_and_limit())
 
     failed, entries = [], {}
+    spills = k3_spills(log)
+    print(f'ptxas: K3 spill bytes per instance {json.dumps(spills)}')
+    if len(spills) < 4 or any(spills.values()):
+        failed.append('K3: ptxas spills (or fewer than 4 instances)')
     # the kernels against their twins (a, b: K1, K2; b+: K2's legacy
     # layout; e, e+: K3's variants; f: K1 in the Det mode); these launches
     # are not the main run's
@@ -2206,6 +2253,8 @@ def main() -> int:
                         ('i', phase_i), ('j card vs CPU', train_card_vs_cpu),
                         ('l', phase_l), ('m', phase_m),
                         ('n card vs CPU', det_train_card_vs_cpu)):
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         try:
             entries[name] = phase(torch, device)
@@ -2213,6 +2262,11 @@ def main() -> int:
             traceback.print_exc()
             failed.append(name)
         print(f'wall time of phase {name}: {time.perf_counter() - t0:.1f} s')
+    if only is not None:
+        print(json.dumps({'kernels': list(entries.values())}, default=str))
+        if failed:
+            print(f'chip_smoke: FAILED phases {failed}', file=sys.stderr)
+        return 1 if failed else 0
 
     # the main run: each path a caller drives, its counters from 0 just
     # before it and read just after it

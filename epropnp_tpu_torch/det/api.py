@@ -33,7 +33,7 @@ def build_detector(cfg: DetConfig, **overrides) -> EProPnPDet:
         pred_velo=cfg.pred_velo, pred_attr=cfg.pred_attr,
         num_attrs=cfg.num_attrs,
         dcn_modulation_scale=cfg.dcn_modulation_scale,
-        dcn_int8_gather=cfg.int8_dcn_gather,
+        dcn_bias=cfg.dcn_bias, dcn_int8_gather=cfg.int8_dcn_gather,
         level_packed_towers=cfg.level_packed_towers,
         backbone_dtype=torch.bfloat16 if cfg.bf16_backbone else None,
         dense_dtype=torch.bfloat16 if cfg.bf16_dense else None, **overrides)

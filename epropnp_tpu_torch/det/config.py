@@ -89,6 +89,11 @@ class DetConfig:
     # from-scratch training; 1.0 = mmcv DCNv2 exactly — required when
     # ingesting converted torch checkpoints (utils/torch_convert).
     dcn_modulation_scale: float = 2.0
+    # A bias on every deformable conv (backbone and FCOS towers). False is
+    # mmcv's layout (released checkpoints load with strict=True); the flax
+    # DeformConv always has one, and a JAX-trained tree needs True
+    # (utils.convert.flax_tree_has_dcn_bias tells).
+    dcn_bias: bool = False
     # Mixed precision: backbone + FPN in bfloat16, heads/PnP in float32.
     bf16_backbone: bool = False
     # Serving mixed precision: run the head's dense stage (FCOS towers

@@ -68,13 +68,13 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  use_dcn: bool = False, dcn_modulation_scale: float = 2.0,
-                 dcn_int8_gather: bool = False):
+                 dcn_bias: bool = False, dcn_int8_gather: bool = False):
         super().__init__()
         self.use_dcn = use_dcn
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = _bn(planes)
         if use_dcn:
-            self.conv2 = DeformConv(planes, planes, stride, bias=False,
+            self.conv2 = DeformConv(planes, planes, stride, bias=dcn_bias,
                                     modulation_scale=dcn_modulation_scale,
                                     int8_gather=dcn_int8_gather)
         else:
@@ -106,6 +106,7 @@ class ResNetBackbone(nn.Module):
             stage 4 is stride 32) to return.
         dcn_stages: 1-based stages whose bottlenecks use DCNv2.
         dcn_modulation_scale: 2.0 (from-scratch default) or 1.0 (mmcv).
+        dcn_bias: a bias on the DCNs (the flax layout; mmcv has none).
         dcn_int8_gather: int8 DCN sampling (serving only).
         dtype: compute dtype; None computes in the input's dtype.
     """
@@ -113,6 +114,7 @@ class ResNetBackbone(nn.Module):
     def __init__(self, depth: int = 34, out_indices: Sequence[int] = (4,),
                  dcn_stages: Sequence[int] = (),
                  dcn_modulation_scale: float = 2.0,
+                 dcn_bias: bool = False,
                  dcn_int8_gather: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -133,6 +135,7 @@ class ResNetBackbone(nn.Module):
                 if block is Bottleneck and stage in dcn_stages:
                     kwargs = dict(use_dcn=True,
                                   dcn_modulation_scale=dcn_modulation_scale,
+                                  dcn_bias=dcn_bias,
                                   dcn_int8_gather=dcn_int8_gather)
                 blocks.append(block(inplanes, channels, stride, **kwargs))
                 inplanes = channels * block.expansion

@@ -157,6 +157,7 @@ class DeformPnPHead(nn.Module):
                  pred_attr: bool = True, num_attrs: int = 9,
                  dcn_on_last_conv: bool = True,
                  dcn_modulation_scale: float = 2.0,
+                 dcn_bias: bool = False,
                  dcn_int8_gather: bool = False,
                  dense_dtype: Optional[torch.dtype] = None,
                  detector_cfg=None):
@@ -180,6 +181,7 @@ class DeformPnPHead(nn.Module):
                           emb_channels=embed_dims,
                           dcn_on_last_conv=dcn_on_last_conv,
                           dcn_modulation_scale=dcn_modulation_scale,
+                          dcn_bias=dcn_bias,
                           dcn_int8_gather=dcn_int8_gather,
                           dense_dtype=dense_dtype)
         det_kwargs.update(detector_cfg or {})

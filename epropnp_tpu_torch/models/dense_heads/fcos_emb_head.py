@@ -6,9 +6,10 @@ level-packed forward, ``get_preds``, and the training targets and losses
 
 Submodules carry mmdet's names: the ``cls_convs``/``reg_convs`` towers
 (``.{i}.conv`` and ``.{i}.gn``; with ``dcn_on_last_conv`` the last conv is
-a bias-free DCNv2), the branches ``conv_{cls,centerness,offset,emb}_prev``,
-the 1x1 predictors ``conv_cls``, ``conv_centerness``, ``conv_offset`` and
-the GN-wrapped ``conv_emb``.
+a DCNv2, bias-free as mmcv's unless ``dcn_bias``), the branches
+``conv_{cls,centerness,offset,emb}_prev``, the 1x1 predictors
+``conv_cls``, ``conv_centerness``, ``conv_offset`` and the GN-wrapped
+``conv_emb``.
 
 Serving options: ``dense_dtype`` (bf16) runs the towers in that dtype and
 casts their outputs back to the input's before the branches;
@@ -101,6 +102,7 @@ class FCOSEmbHead(nn.Module):
                  offset_cls_agnostic: bool = True,
                  dcn_on_last_conv: bool = True,
                  dcn_modulation_scale: float = 2.0,
+                 dcn_bias: bool = False,
                  dcn_int8_gather: bool = False,
                  cls_branch: Sequence[int] = (256,),
                  centerness_branch: Sequence[int] = (64,),
@@ -125,7 +127,7 @@ class FCOSEmbHead(nn.Module):
             for i in range(stacked_convs):
                 cin = in_channels if i == 0 else feat_channels
                 if dcn_on_last_conv and i == stacked_convs - 1:
-                    conv = DeformConv(cin, feat_channels, bias=False,
+                    conv = DeformConv(cin, feat_channels, bias=dcn_bias,
                                       modulation_scale=dcn_modulation_scale,
                                       int8_gather=dcn_int8_gather)
                 else:

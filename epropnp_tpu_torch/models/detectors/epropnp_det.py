@@ -38,6 +38,7 @@ class EProPnPDet(nn.Module):
                  pred_attr: bool = True, num_attrs: int = 9,
                  dcn_on_last_conv: bool = True,
                  dcn_modulation_scale: float = 2.0,
+                 dcn_bias: bool = False,
                  dcn_int8_gather: bool = False,
                  level_packed_towers: bool = False,
                  backbone_dtype: Optional[torch.dtype] = None,
@@ -55,7 +56,7 @@ class EProPnPDet(nn.Module):
         self.backbone = ResNetBackbone(
             backbone_depth, out_indices=tuple(range(first_stage, 5)),
             dcn_stages=backbone_dcn_stages,
-            dcn_modulation_scale=dcn_modulation_scale,
+            dcn_modulation_scale=dcn_modulation_scale, dcn_bias=dcn_bias,
             dcn_int8_gather=dcn_int8_gather, dtype=backbone_dtype)
         in_ch = self.backbone.feat_channels[first_stage - 1:]
         self.neck = FPN(in_channels=in_ch, out_channels=embed_dims,
@@ -70,7 +71,7 @@ class EProPnPDet(nn.Module):
             dim_cls_agnostic=dim_cls_agnostic, pred_velo=pred_velo,
             pred_attr=pred_attr, num_attrs=num_attrs,
             dcn_on_last_conv=dcn_on_last_conv,
-            dcn_modulation_scale=dcn_modulation_scale,
+            dcn_modulation_scale=dcn_modulation_scale, dcn_bias=dcn_bias,
             dcn_int8_gather=dcn_int8_gather, dense_dtype=dense_dtype,
             detector_cfg=dict(offset_cls_agnostic=offset_cls_agnostic,
                               level_packed=level_packed_towers,

@@ -2,9 +2,11 @@
 
 ``dcn_forward`` is what ``DeformConv`` calls. On a CUDA tensor it launches
 the hand-written kernel of ``csrc/dcn_kernel.cu`` (an implicit GEMM that
-gathers the 4 bilinear corners of every tap from the NHWC map itself) or
-raises; on a CPU tensor it runs :func:`dcn_reference`, the same function
-written with torch gathers and one product with the weight.
+gathers the 4 bilinear corners of every tap from the NHWC map itself: f32
+FMA on the CUDA cores for an f32 weight, bf16 products on the tensor cores
+for a bf16 weight) or raises; on a CPU tensor it runs
+:func:`dcn_reference`, the same function written with torch gathers and
+one product with the weight.
 
 For every output position (img, i, j) and output channel o::
 
@@ -141,21 +143,14 @@ def corner_rows_and_weights(offset_mask, region, canvas_hw, stride,
     return torch.stack(rows, -1), torch.stack(weights, -1)
 
 
-def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
+def sampled_stack(x, offset_mask, stride: int = 1,
                   modulation_scale: float = 2.0,
-                  levels: Optional[Sequence[Tuple[int, int, int, int]]] = None
-                  ) -> torch.Tensor:
-    """Plain torch twin of K3: gathers, the 4-corner combine and one
-    product with the weight, in the variant the dtypes pick.
-
-    x (n, h, w, c) NHWC -> (n, ho, wo, cout); with ``levels`` (stride 1,
-    ``offset_mask`` on the same canvas as x) -> (L, cout).
-    """
+                  levels: Optional[Sequence[Tuple[int, int, int, int]]] = None,
+                  acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """The combined corner values of every output position and tap, (L,
+    9 c) in ``acc``: the A operand of K3's product, before ``round_k``.
+    Arguments as :func:`dcn_reference`."""
     n, hc, wc, c = x.shape
-    w3 = kernel_weight(weight) if weight.dim() == 4 else weight
-    cout = w3.shape[-1]
-    cdt = compute_dtype(x.dtype, w3.dtype)
-    acc = torch.float64 if cdt == torch.float64 else torch.float32
     regions = levels if levels is not None else [(0, 0, hc, wc)]
     rows, w4 = [], []
     for y0, x0, h, w in regions:
@@ -172,8 +167,28 @@ def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
     rows, w4 = torch.cat(rows), torch.cat(w4)
     flat = x.reshape(n * hc * wc, c).to(acc)
     sampled = sum(flat[rows[..., k]] * w4[..., k, None] for k in range(4))
+    return sampled.reshape(-1, TAPS * c)
+
+
+def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
+                  modulation_scale: float = 2.0,
+                  levels: Optional[Sequence[Tuple[int, int, int, int]]] = None
+                  ) -> torch.Tensor:
+    """Plain torch twin of K3: gathers, the 4-corner combine and one
+    product with the weight, in the variant the dtypes pick.
+
+    x (n, h, w, c) NHWC -> (n, ho, wo, cout); with ``levels`` (stride 1,
+    ``offset_mask`` on the same canvas as x) -> (L, cout).
+    """
+    n, hc, wc, c = x.shape
+    w3 = kernel_weight(weight) if weight.dim() == 4 else weight
+    cout = w3.shape[-1]
+    cdt = compute_dtype(x.dtype, w3.dtype)
+    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    sampled = sampled_stack(x, offset_mask, stride, modulation_scale, levels,
+                            acc)
     sampled = sampled.to(cdt).to(acc)  # the operand of the product
-    out = sampled.reshape(-1, TAPS * c) @ w3.to(acc).reshape(TAPS * c, cout)
+    out = sampled @ w3.to(acc).reshape(TAPS * c, cout)
     if bias is not None:
         out = out + bias.to(cdt).to(acc)
     out = out.to(cdt)

@@ -20,7 +20,8 @@ checkpoints'. Layout rules (the converter's, reversed):
 - GroupNorm/LayerNorm scale/bias      -> weight/bias
 - DeformConv kernel (9 I, O), tap-major -> weight (O, I, 3, 3); its
   conv_offset's (dx, dy) output pairs swapped back to mmcv's (dy, dx);
-  the flax bias is dropped where mmcv's DCN has none (it must be zero)
+  the flax bias is kept with ``DetConfig.dcn_bias`` and dropped without
+  it, where it must then be zero (mmcv's DCNs have none)
 - the q/k/v Dense layers of a point transformer -> one packed
   ``in_proj_weight`` (3E, E) with rows [q; k; v]
 - a bf16 leaf (a ``DeformConv`` kernel and bias of a bf16 module, as in
@@ -32,6 +33,7 @@ Pure numpy until the final conversion to tensors.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -247,15 +249,33 @@ def _deform_conv(out: Dict, name: str, p: Dict, bias: bool) -> None:
     if bias:
         out[f'{name}.bias'] = p['bias']
     elif np.any(p['bias']):
-        raise ValueError(f'{name}: mmcv has no bias here, but the flax '
-                         'DeformConv bias is non-zero')
+        raise ValueError(f'{name}: the flax DeformConv bias is non-zero, but '
+                         'the model has none (DetConfig.dcn_bias=False, '
+                         "mmcv's layout); build it with dcn_bias=True")
     out[f'{name}.conv_offset.weight'] = conv_weight(
         p['conv_offset']['kernel'])[_DCN_PAIR_SWAP]
     out[f'{name}.conv_offset.bias'] = p['conv_offset']['bias'][_DCN_PAIR_SWAP]
 
 
+def _dcn_params(tree: Dict):
+    """Every flax ``DeformConv`` params dict in ``tree``."""
+    for value in tree.values():
+        if isinstance(value, Mapping):
+            if 'kernel' in value and 'conv_offset' in value:
+                yield value
+            else:
+                yield from _dcn_params(value)
+
+
+def flax_tree_has_dcn_bias(variables: Dict) -> bool:
+    """Whether any flax ``DeformConv`` of an EProPnPDet tree has a non-zero
+    bias: the ``DetConfig.dcn_bias`` that :func:`det_state_dict` needs."""
+    return any(np.any(np.asarray(p['bias']))
+               for p in _dcn_params(variables['params']))
+
+
 def _det_backbone(out: Dict, params: Dict, stats: Dict,
-                  depth: int) -> None:
+                  depth: int, dcn_bias: bool = False) -> None:
     """ResNet(-DCN): a stage is deformable where its blocks hold a
     ``DeformConv_0`` (stages 3 and 4 of every released config)."""
     _, stage_sizes, _ = resnet_spec[depth]
@@ -266,17 +286,18 @@ def _det_backbone(out: Dict, params: Dict, stats: Dict,
         for i in range(stage_sizes[stage - 1]):
             _deform_conv(out, f'backbone.layer{stage}.{i}.conv2',
                          params[f'layer{stage}_block{i}']['DeformConv_0'],
-                         bias=False)
+                         bias=dcn_bias)
 
 
-def _fcos_head(out: Dict, params: Dict, p: str) -> None:
+def _fcos_head(out: Dict, params: Dict, p: str,
+               dcn_bias: bool = False) -> None:
     for tower, ours in (('cls_convs', 'cls'), ('reg_convs', 'reg')):
         i = 0
         while f'{ours}_gn{i}' in params:
             t = f'{p}{tower}.{i}'
             if f'{ours}_dcn{i}' in params:
                 _deform_conv(out, f'{t}.conv', params[f'{ours}_dcn{i}'],
-                             bias=False)
+                             bias=dcn_bias)
             else:
                 _conv(out, f'{t}.conv', params[f'{ours}_conv{i}'])
             _norm(out, f'{t}.gn', params[f'{ours}_gn{i}'])
@@ -296,8 +317,9 @@ def _fcos_head(out: Dict, params: Dict, p: str) -> None:
     _norm(out, f'{p}conv_emb.gn', params['conv_emb_gn'])
 
 
-def _det_head(out: Dict, params: Dict, p: str = 'bbox_head.') -> None:
-    _fcos_head(out, params['detector'], f'{p}detector.')
+def _det_head(out: Dict, params: Dict, p: str = 'bbox_head.',
+              dcn_bias: bool = False) -> None:
+    _fcos_head(out, params['detector'], f'{p}detector.', dcn_bias)
     sampler = params['attention_sampler']
     s = f'{p}attention_sampler.'
     _linear(out, f'{s}sampling_offsets', sampler['sampling_offsets'])
@@ -351,12 +373,15 @@ def _det_head(out: Dict, params: Dict, p: str = 'bbox_head.') -> None:
 def det_state_dict(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     """flax EProPnPDet variables (numpy) -> port ``EProPnPDet`` state dict.
 
-    ``cfg`` is a ``det.config.DetConfig`` (its depth and strides).
+    ``cfg`` is a ``det.config.DetConfig`` (its depth, strides and
+    ``dcn_bias``). With ``cfg.dcn_bias`` the flax DCN biases are written;
+    without it they must be zero, or this raises (the model has no bias
+    to take them: see :func:`flax_tree_has_dcn_bias`).
     """
     params, stats = variables['params'], variables['batch_stats']
     out: Dict[str, np.ndarray] = {}
     _det_backbone(out, params['backbone'], stats['backbone'],
-                  cfg.backbone_depth)
+                  cfg.backbone_depth, cfg.dcn_bias)
     neck = params['neck']
     n_lat = sum(k.startswith('lateral_') for k in neck)
     for i in range(n_lat):
@@ -365,7 +390,7 @@ def det_state_dict(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     for j in range(len(cfg.strides) - n_lat):
         _conv(out, f'neck.fpn_convs.{n_lat + j}.conv',
               neck[f'extra_conv_{j}'])
-    _det_head(out, params['head'])
+    _det_head(out, params['head'], dcn_bias=cfg.dcn_bias)
     return {k: torch.tensor(_float32_if_bf16(np.asarray(v)))
             for k, v in out.items()}
 
@@ -377,7 +402,8 @@ def _float32_if_bf16(a: np.ndarray) -> np.ndarray:
 def _flax_deform_conv(sd: Dict, name: str) -> Dict:
     """mmcv DCNv2 entries -> flax ``DeformConv`` params: the kernel
     flattened tap-major to (9 I, O), the conv_offset's (dy, dx) output
-    pairs swapped to (dx, dy), a zero bias where mmcv has none."""
+    pairs swapped to (dx, dy); the module's bias, or zeros where it has
+    none (mmcv's layout)."""
     w = sd[f'{name}.weight']
     c_out, c_in = w.shape[:2]
     kernel = np.transpose(w, (2, 3, 1, 0)).reshape(9 * c_in, c_out)
@@ -396,10 +422,10 @@ def det_variables(sd: Dict[str, np.ndarray], cfg) -> Dict:
     :func:`det_state_dict` (a training state, or its gradients, compared
     with the JAX package's). ``cfg`` is a ``det.config.DetConfig``.
 
-    The flax ``DeformConv`` has a bias that mmcv's DCNs (backbone, FCOS
-    towers) lack: it comes back as zeros. Entries without running
-    statistics (a dict of gradients) give no ``batch_stats`` for their
-    BatchNorms.
+    The flax ``DeformConv`` always has a bias: a model built with
+    ``dcn_bias`` gives its own, one without (mmcv's layout) zeros. Entries
+    without running statistics (a dict of gradients) give no
+    ``batch_stats`` for their BatchNorms.
     """
     def conv(name, bias=True):
         out = {'kernel': np.ascontiguousarray(

@@ -36,7 +36,8 @@ from epropnp_tpu_torch.models.dense_heads.fcos_emb_head import (
     FCOSLevelOutputs as TLevel)
 from epropnp_tpu_torch.ops import pnp as tpnp
 from epropnp_tpu_torch.ops.pnp import lm_kernel
-from epropnp_tpu_torch.utils.convert import det_state_dict
+from epropnp_tpu_torch.utils.convert import (
+    det_state_dict, det_variables, flax_tree_has_dcn_bias)
 from epropnp_tpu_torch.utils.synthetic import make_pnp_problem
 
 torch.set_num_threads(1)
@@ -68,7 +69,8 @@ def _cfgs(use_pallas=False):
 def _randomize(variables, seed):
     """BatchNorm statistics and affine parameters, the DCN offset convs
     (offsets of a pixel or so) and the class embeddings are drawn anew; a
-    DCN bias stays 0 (mmcv's DCN has none). Leaves come out f32, except
+    DCN bias stays 0 (mmcv's DCN has none; :func:`_with_dcn_biases` draws
+    them for a model built with ``dcn_bias``). Leaves come out f32, except
     that a bf16 leaf (the DCN kernel of a bf16 module) stays bf16: as f32
     it would turn the JAX model's bf16 DCN into an f32 one."""
     r = np.random.default_rng(seed)
@@ -86,6 +88,25 @@ def _randomize(variables, seed):
         elif 'conv_offset' in keys or keys[-1] == 'cls_emb':
             x = r.normal(0, 0.05, x.shape)
         return np.asarray(jnp.asarray(x, np.float32).astype(dtype))
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _is_dcn_bias(path):
+    keys = [str(getattr(p, 'key', '')) for p in path]
+    return keys[-1] == 'bias' and ('DeformConv_0' == keys[-2]
+                                   or '_dcn' in keys[-2])
+
+
+def _with_dcn_biases(variables, seed, scale=0.05):
+    """``variables`` with every DCN bias drawn from N(0, scale), in the
+    leaf's dtype; every other leaf as it was."""
+    r = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        if not _is_dcn_bias(path):
+            return x
+        return np.asarray(jnp.asarray(r.normal(0, scale, x.shape),
+                                      np.float32).astype(x.dtype))
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
@@ -114,10 +135,21 @@ def _inputs(seed):
                 mask=np.ones((N_IMG, H, W, 1), np.float32))
 
 
+def _apply_dense(jmodel, variables, img):
+    return jmodel.apply(variables, img, (H, W), train=False,
+                        method=jmodel.det_dense)
+
+
+# one jit per flax module (kept alive here, so its id stays its own): a
+# model compiles once per dtype of its variables, whatever their values
+_DENSE_JITS = {}
+
+
 def _jax_dense(jmodel, variables, img):
-    return jax.jit(lambda v, x: jmodel.apply(
-        v, x, (H, W), train=False, method=jmodel.det_dense))(
-        variables, jnp.asarray(img))
+    if id(jmodel) not in _DENSE_JITS:
+        _DENSE_JITS[id(jmodel)] = (jmodel, jax.jit(
+            lambda v, x: _apply_dense(jmodel, v, x)))
+    return _DENSE_JITS[id(jmodel)][1](variables, jnp.asarray(img))
 
 
 def _to_torch(tree):
@@ -132,8 +164,7 @@ def _close_to_max(a, b, rtol):
     assert np.abs(a - b).max() <= rtol * np.abs(b).max() + 1e-30
 
 
-def test_det_dense_matches_flax(models):
-    jmodel, variables, tmodel = models
+def _dense_matches_flax(jmodel, variables, tmodel):
     img = _inputs(2)['img']
     jouts, jkey, jvalue = _jax_dense(jmodel, variables, img)
     with torch.no_grad():
@@ -145,6 +176,47 @@ def test_det_dense_matches_flax(models):
             _close_to_max(getattr(to, name).numpy(), getattr(jo, name), 1e-4)
     _close_to_max(tkey.numpy(), jkey, 1e-4)
     _close_to_max(tvalue.numpy(), jvalue, 1e-4)
+
+
+def test_det_dense_matches_flax(models):
+    _dense_matches_flax(*models)
+
+
+@pytest.fixture(scope='module')
+def biased_models(models):
+    """``models``' flax tree with non-zero DCN biases (the FCOS towers'),
+    and the port built with ``dcn_bias=True`` from it."""
+    jmodel, variables, _ = models
+    variables = _with_dcn_biases(variables, 3)
+    _, tcfg = _cfgs()
+    tcfg = dataclasses.replace(tcfg, dcn_bias=True)
+    tmodel = tapi.init_detector(tcfg, device='cpu', **_overrides())
+    tmodel.load_state_dict(det_state_dict(variables, tcfg), strict=True)
+    return jmodel, variables, tmodel
+
+
+def test_det_dense_matches_flax_with_dcn_bias(models, biased_models):
+    """A flax tree whose DCNs have a bias (as a JAX-trained one) loads
+    into the port built with ``dcn_bias=True`` and gives flax's dense
+    outputs at the same 1e-4 rule."""
+    jmodel, variables, tmodel = biased_models
+    assert flax_tree_has_dcn_bias(variables)
+    assert not flax_tree_has_dcn_bias(models[1])
+    biases = [m.bias for m in tmodel.modules()
+              if type(m).__name__ == 'DeformConv']
+    assert biases and all(b is not None and b.abs().max() > 0.01
+                          for b in biases)
+    _dense_matches_flax(jmodel, variables, tmodel)
+
+
+def test_det_state_dict_refuses_dcn_bias_without_flag(biased_models):
+    """Without ``dcn_bias`` (mmcv's layout) a non-zero flax DCN bias has
+    nowhere to go: the converter refuses it and names the field."""
+    _, variables, _ = biased_models
+    _, tcfg = _cfgs()
+    assert not tcfg.dcn_bias
+    with pytest.raises(ValueError, match='dcn_bias'):
+        det_state_dict(variables, tcfg)
 
 
 def _jax_preds(jmodel, variables, outs, kpi=KPI):
@@ -344,35 +416,48 @@ def test_inference_fn_end_to_end(models, jax_results, use_pallas):
     assert sum(len(c) for im in out3d for c in im) == live.sum()
 
 
-def test_det_state_dict_round_trips_at_v1b():
+def _round_trip_v1b(dcn_bias):
     """The v1b structure at full width (ResNet-101 with DCN in stages 3-4,
     FPN 256, 8 heads x 16 points): flax tree (shapes from eval_shape,
-    seeded values) -> ``det_state_dict`` -> ``load_state_dict(strict)`` ->
-    ``det_model_variables`` -> the same leaves, bit for bit."""
-    jcfg, tcfg = jconfig.DetConfig.v1b(), tconfig.DetConfig.v1b()
+    seeded values; the DCN biases zero, or drawn where the port is built
+    with ``dcn_bias``) -> ``det_state_dict`` -> ``load_state_dict(strict)``
+    -> ``det_model_variables`` and the port's ``det_variables`` -> the
+    same leaves, bit for bit."""
+    jcfg = jconfig.DetConfig.v1b()
+    tcfg = dataclasses.replace(tconfig.DetConfig.v1b(), dcn_bias=dcn_bias)
     jmodel = jbuild_detector(jcfg)
     shapes = jax.eval_shape(lambda k, x: jmodel.init(k, x, (64, 64)),
                             jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
     r = np.random.default_rng(5)
 
     def leaf(path, s):
-        keys = [str(getattr(p, 'key', '')) for p in path]
-        if 'DeformConv_0' in keys[-2:] or '_dcn' in keys[-2]:
-            if keys[-1] == 'bias':  # mmcv's DCNs have no bias
-                return np.zeros(s.shape, np.float32)
+        if _is_dcn_bias(path) and not dcn_bias:  # mmcv's DCNs have none
+            return np.zeros(s.shape, np.float32)
         return r.normal(size=s.shape).astype(np.float32)
     variables = jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+    assert flax_tree_has_dcn_bias(variables) == dcn_bias
     tmodel = tapi.build_detector(tcfg)
     tmodel.load_state_dict(det_state_dict(variables, tcfg), strict=True)
     sd = {k: v.numpy() for k, v in tmodel.state_dict().items()}
-    back = det_model_variables(sd, depth=101, dcn_stages=(3, 4),
-                               num_fpn_laterals=3, num_fpn_extra=2)
-    flat_a = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert sum(k.endswith('conv2.bias') for k in sd) == (26 if dcn_bias
+                                                          else 0)
     flat_b = dict(jax.tree_util.tree_flatten_with_path(variables)[0])
-    assert len(flat_a) == len(flat_b)
-    for path, value in flat_a:
-        np.testing.assert_array_equal(np.asarray(value), flat_b[path],
-                                      err_msg=str(path))
+    for back in (det_model_variables(sd, depth=101, dcn_stages=(3, 4),
+                                     num_fpn_laterals=3, num_fpn_extra=2),
+                 det_variables(sd, tcfg)):
+        flat_a = jax.tree_util.tree_flatten_with_path(back)[0]
+        assert len(flat_a) == len(flat_b)
+        for path, value in flat_a:
+            np.testing.assert_array_equal(np.asarray(value), flat_b[path],
+                                          err_msg=str(path))
+
+
+def test_det_state_dict_round_trips_at_v1b():
+    _round_trip_v1b(dcn_bias=False)
+
+
+def test_det_state_dict_round_trips_at_v1b_with_dcn_bias():
+    _round_trip_v1b(dcn_bias=True)
 
 
 def test_api_refuses_what_is_not_ported():

@@ -228,6 +228,57 @@ def test_dcn_kernel_variants_match_twin(cuda_device, variant, n, shapes, c,
         assert out.shape[0] == n * sum(h * w for h, w in shapes)
 
 
+# Edges of K3's tiling (blocks of 128 positions x 128 outputs; chunks of 16
+# f32 or 32 bf16 channels; mma tiles of 8 outputs): L not a multiple of
+# 128; cout past a block edge, 520 (a multiple of 8) and 524 (4 mod 8, a
+# ragged mma tile); c = cout = 512 (stage 4) on a small map; an 8-level
+# table with levels smaller than a block; a stride-2 map.
+K3_EDGE_CASES = [  # (n, shapes, c, cout, stride)
+    (1, [(11, 13)], 64, 64, 1),
+    (1, [(9, 10)], 64, 520, 1),
+    (1, [(9, 10)], 64, 524, 1),
+    (1, [(7, 9)], 512, 512, 1),
+    (2, [(16, 20), (8, 10), (4, 5), (2, 3), (1, 2), (3, 3), (5, 7),
+         (1, 1)], 64, 36, 1),
+    (1, [(15, 17)], 64, 132, 2),
+]
+
+
+@pytest.mark.parametrize('variant', ['f32', 'int8_f32w', 'bf16', 'int8'])
+@pytest.mark.parametrize('n,shapes,c,cout,stride', K3_EDGE_CASES)
+def test_dcn_kernel_tiling_edges_match_twin(cuda_device, variant, n, shapes,
+                                            c, cout, stride):
+    """K3 at the edges of its tiles, every pair of map and weight type,
+    against the twin in the same variant: max|k - t| <= 1e-4 max|t| where
+    the weight is f32 (f32 sums in another order), 8e-3 where it is bf16
+    (phase e+'s rule: the combined value rounds to bf16 on both sides)."""
+    r = np.random.default_rng(len(shapes) * 1000 + c + cout + stride)
+    x, om, weight, bias, levels = _dcn_case(r, n, shapes, c, cout, stride,
+                                            cuda_device)
+    w3 = dcn_kernel.kernel_weight(weight)
+    if variant == 'f32':
+        xv, w3v = x, w3
+    elif variant == 'bf16':
+        xv, w3v = x.to(torch.bfloat16), w3.to(torch.bfloat16)
+    else:
+        xv, w3v = dcn_kernel.quantize_nhwc(
+            x, w3 if variant == 'int8_f32w' else w3.to(torch.bfloat16))
+    counter = {'f32': 'launches', 'bf16': 'launches_bf16'}.get(
+        variant, 'launches_int8')
+    before = getattr(dcn_kernel, counter)
+    with torch.no_grad():
+        out = dcn_kernel.dcn_forward(xv, om, w3v, bias, stride, 2.0, levels)
+        ref = dcn_kernel.dcn_reference(xv, om, w3v, bias, stride, 2.0,
+                                       levels)
+    torch.cuda.synchronize()
+    assert getattr(dcn_kernel, counter) == before + 1
+    assert out.dtype == ref.dtype == w3v.dtype
+    assert out.shape == ref.shape
+    rule = 1e-4 if w3v.dtype == torch.float32 else 8e-3
+    scale = ref.float().abs().max()
+    assert (out.float() - ref.float()).abs().max() <= rule * scale
+
+
 @pytest.mark.parametrize('dof', [4, 6])
 @pytest.mark.parametrize('n,num_points', [(96, 16), (384, 24), (256, 16)])
 def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
@@ -425,6 +476,35 @@ def test_dcn_backward_on_card_matches_autograd_of_the_twin(cuda_device,
     for got, ref in zip(*grads):
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max() <= 2.2e-4 * ref.abs().max()
+
+
+def test_deform_conv_with_bias_on_card_matches_cpu(cuda_device):
+    """A ``DeformConv`` built with a bias (``DetConfig.dcn_bias``) in f32
+    training: K3 adds the bias on the card and ``DCNFunction`` returns its
+    gradient. Card against the CPU twin: the forward within 1e-4 of max|t|
+    (phase e's rule), the weight and bias gradients within phase m's
+    2.2e-4."""
+    from epropnp_tpu_torch.ops.deform_conv import DeformConv
+    torch.manual_seed(3)
+    mod = DeformConv(32, 24, bias=True)
+    with torch.no_grad():
+        mod.bias.normal_(0, 0.5)
+        mod.conv_offset.weight.normal_(0, 0.05)
+    card = DeformConv(32, 24, bias=True).to(cuda_device)
+    card.load_state_dict(mod.state_dict())
+    x = torch.randn(2, 9, 13, 32)
+    before = dcn_kernel.launches
+    got = card(x.to(cuda_device))
+    ref = mod(x)
+    assert dcn_kernel.launches == before + 1
+    assert (got.detach().cpu() - ref.detach()).abs().max() \
+        <= 1e-4 * ref.abs().max()
+    ct = torch.randn(ref.shape)
+    got.backward(ct.to(cuda_device))
+    ref.backward(ct)
+    for name in ('weight', 'bias'):
+        g, r = getattr(card, name).grad.cpu(), getattr(mod, name).grad
+        assert (g - r).abs().max() <= 2.2e-4 * r.abs().max(), name
 
 
 def test_det_train_step_on_card_launches_its_kernels(cuda_device):
