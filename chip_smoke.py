@@ -10,7 +10,11 @@ these phases; any failure exits non-zero:
 
 a. K1 (fused LM solve) against its torch twin on the card, at the shapes
    of the main path: (2048, 16) and (32, 4096) in fast Gauss-Newton mode,
-   (1024, 512) with the full trust region.
+   (1024, 512) with the full trust region. Each K1 and K2 row (a, b, b+,
+   f, i, l) gives the group size of K1's launch, the time by CUDA events
+   over back-to-back calls (``ms``: at small shapes the host's time a
+   call), the kernel's own time from the profiler (``device_ms``) and the
+   bound's share of ``ms`` (``bound_share``).
 b. K2 (fused RSLM init) against its twin at B=1024, N=512: per object
    (the twin replays the kernel's Philox stream), by distribution (median
    init cost within 2x of the twin's) and by the cost consistency of the
@@ -89,10 +93,17 @@ and read just after it. Each phase's wall time is printed. Earlier lines
 print each phase's numbers, the card's ``nvidia-smi`` name and power
 limit, and one JSON object with a row per kernel; the last line is
 ``{"ok": true, "device": {...}}``. The run fails if ptxas reports spill
-bytes for a K3 instance (a ``dcn_forward`` entry of the build log).
+bytes for an instance of K1, K2 or K3 (an ``lm_solve_kernel``,
+``rslm_init_kernel`` or ``dcn_forward`` entry of the build log); it
+prints each K1 and K2 instance's registers, block shape and resident
+blocks an SM at the main path's shapes, and each K1/K2 row its bound's
+share of its time (``bound_share``).
 
 ``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
-i, l, m), not the main run, and prints no ``ok`` line.
+i, l, m), not the main run, and prints no ``ok`` line. ``--only
+a-groups`` times K1 over its group sizes at the main path's shapes (the
+measurement behind ``lm_kernel.group_size``); it is not part of the full
+run.
 """
 
 from __future__ import annotations
@@ -197,9 +208,10 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k3_spills(log_text: str):
-    """Spill bytes (stores + loads) that ptxas reports for each K3 kernel
-    instance (an entry whose name holds ``dcn_forward``) in a build log."""
+def ptxas_spills(log_text: str, key: str):
+    """Spill bytes (stores + loads) that ptxas reports for each kernel
+    instance whose entry name holds ``key`` (``dcn_forward``: K3;
+    ``lm_solve_kernel``: K1; ``rslm_init_kernel``: K2) in a build log."""
     spills, name = {}, None
     for line in log_text.splitlines():
         m = re.search(r'Function properties for (\S+)', line)
@@ -209,10 +221,68 @@ def k3_spills(log_text: str):
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
                       line)
         if m and name is not None:
-            if 'dcn_forward' in name:
+            if key in name:
                 spills[name] = int(m.group(1)) + int(m.group(2))
             name = None
     return spills
+
+
+# Phases that run only when ``--only`` names them.
+OPT_IN_PHASES = ('a-groups',)
+# Instances each kernel must build (name key, count): K1 dof x fast x
+# bounds x JtJ, K2 dof x bounds, K3 f32/bf16/int8 forwards.
+KERNEL_INSTANCES = {'K1': ('lm_solve_kernel', 16),
+                    'K2': ('rslm_init_kernel', 4),
+                    'K3': ('dcn_forward', 4)}
+
+
+def k1_group(b, n):
+    """K1's threads an object at (B, N); None for a package without the
+    picker (a tree before it, driven by this script for a comparison)."""
+    from epropnp_tpu_torch.ops.pnp import lm_kernel
+    picker = getattr(lm_kernel, 'group_size', None)
+    return None if picker is None else picker(b, n)
+
+
+def k1k2_occupancy(lib):
+    """Registers, block shape and resident blocks an SM of every K1 and K2
+    instance at the main path's shapes (the library's occupancy query);
+    printed one row each. Empty for a library without the query (a tree
+    before it)."""
+    import ctypes
+    if not hasattr(lib, 'epropnp_lm_occupancy'):
+        print('occupancy: this library has no occupancy query')
+        return []
+    rows = []
+    out = (ctypes.c_int * 4)()
+    k1 = [  # (dof, fast, bounds, jtj, B, N): phases a, f and i
+        (6, 1, 0, 0, 2048, 16), (6, 1, 0, 0, 32, 4096),
+        (6, 0, 0, 0, 1024, 512), (4, 1, 1, 0, 98304, 16),
+        (4, 1, 1, 0, 1536, 128), (6, 0, 1, 0, 128, 16),
+        (6, 0, 1, 1, 32, 512), (4, 0, 1, 1, 1536, 128)]
+    for dof in (4, 6):  # the other instances at the bench shape
+        for fast in (0, 1):
+            for bnd in (0, 1):
+                for jtj in (0, 1):
+                    if not any(r[:4] == (dof, fast, bnd, jtj) for r in k1):
+                        k1.append((dof, fast, bnd, jtj, 1024, 512))
+    for dof, fast, bnd, jtj, b, n in k1:
+        g = k1_group(b, n)
+        err = lib.epropnp_lm_occupancy(dof, fast, bnd, jtj, n, g, out)
+        rows.append(dict(kernel='K1', dof=dof, fast_mode=fast, bounds=bnd,
+                         jtj=jtj, B=b, N=n, group=g, err=err,
+                         registers=out[0], threads=out[1],
+                         dynamic_smem=out[2], blocks_per_sm=out[3]))
+    for dof, bnd, n, props, pts in ((6, 0, 512, 64, 16), (4, 1, 128, 64, 16),
+                                    (6, 0, 384, 64, 24), (4, 0, 384, 64, 24)):
+        err = lib.epropnp_rslm_occupancy(dof, bnd, n, props, pts, out)
+        rows.append(dict(kernel='K2', dof=dof, bounds=bnd, N=n,
+                         proposals=props, points=pts, err=err,
+                         registers=out[0], threads=out[1],
+                         dynamic_smem=out[2], blocks_per_sm=out[3]))
+    for row in rows:
+        print('occupancy: ' + json.dumps(row))
+    return rows
 
 
 def pnp_problem(torch, device, b, n, seed, init_noise):
@@ -241,6 +311,32 @@ def time_ms(torch, fn, warmup=2, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_us(e):
+    """Device time (us) of a profiler event, across torch versions."""
+    return getattr(e, 'self_device_time_total', None) or getattr(
+        e, 'self_cuda_time_total', 0)
+
+
+def device_ms(torch, fn, key, iters=20):
+    """Mean device time (ms) of one launch of the kernels whose name holds
+    ``key`` over ``iters`` calls of ``fn`` (``torch.profiler``): the
+    kernel's own time, where ``time_ms`` also counts the host's gaps
+    between short launches. None where the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if key in e.key and _device_us(e) > 0:
+            total += _device_us(e)
+            count += e.count
+    return total / count / 1e3 if count else None
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -279,8 +375,7 @@ def profile_once(torch, fn, label, top=6):
         wall = time.perf_counter() - t0
     try:
         events = prof.key_averages()
-        dev = lambda e: getattr(e, 'self_device_time_total', None) or getattr(  # noqa: E731,E501
-            e, 'self_cuda_time_total', 0)
+        dev = _device_us
         # device-side events only: an op's row repeats its kernels' time
         kernels = sorted(
             (e for e in events if dev(e) > 0
@@ -360,10 +455,13 @@ def phase_a(torch, device):
         max_err = max(max_err, err)
         ms = time_ms(torch, run_k, iters=20)
         plain_ms = time_ms(torch, run_t, iters=5)
+        bound = k1_bound(b, n, 6, iters + (not fast))[0]
         row = dict(B=b, N=n, fast_mode=fast, num_iter=iters, what=what,
+                   group=k1_group(b, n),
                    cost_agree=float(frac_c), pose_agree=float(frac_p),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=k1_bound(b, n, 6, iters + (not fast))[0])
+                   max_abs_err=err, ms=ms,
+                   device_ms=device_ms(torch, run_k, 'lm_solve_kernel'),
+                   plain_ms=plain_ms, bound_ms=bound, bound_share=bound / ms)
         print('phase a: K1 ' + json.dumps(row))
         assert frac_c >= K1_MIN_FRAC and frac_p >= K1_MIN_FRAC, \
             f'K1 disagrees with its twin at {(b, n, fast)}'
@@ -373,8 +471,69 @@ def phase_a(torch, device):
     return dict(name='lm_solve (K1)', route='cuda',
                 source='epropnp_tpu_torch/csrc/lm_kernel.cu',
                 replaces='epropnp_tpu/ops/pnp/pallas_lm.py:396',
-                max_abs_err=max_err, ms=main['ms'], plain_ms=main['plain_ms'],
+                max_abs_err=max_err, ms=main['ms'],
+                device_ms=main['device_ms'], plain_ms=main['plain_ms'],
                 bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_a_groups(torch, device):
+    """K1's device time over its group sizes (threads an object) at the
+    main path's shapes, beside the size ``lm_kernel.group_size`` picks:
+    the measurement behind the picker. Each size's result is held to the
+    twin as phase a holds K1."""
+    from epropnp_tpu_torch.ops.pnp import lm_kernel as k1
+    from epropnp_tpu_torch.utils.synthetic import make_bounded_pnp_problem
+    picker = k1.group_size
+    shapes = [  # (dof, B, N, num_iter, fast, problem)
+        (6, 1024, 512, 10, False, 'bench'),
+        (6, 2048, 16, 3, True, 'bench'), (6, 32, 4096, 3, True, 'bench'),
+        (4, 98304, 16, 3, True, 'det'), (4, 1536, 128, 5, True, 'det'),
+        (6, 128, 16, 3, False, 'bounded'), (6, 32, 512, 5, False, 'bounded'),
+        (4, 1536, 128, 10, False, 'bounded')]
+    try:
+        for i, (dof, b, n, iters, fast, kind) in enumerate(shapes):
+            kw = dict(dof=dof, num_iter=iters, fast_mode=fast, z_min=0.1)
+            if kind == 'bench':
+                x3d, x2d, w2d, cam, pose0 = pnp_problem(
+                    torch, device, b, n, 10 + i,
+                    (0.05, 0.1) if fast else (0.3, 0.5))
+                args = (x3d, x2d, w2d, cam,
+                        torch.full((b,), 10.0 / n, device=device), pose0)
+            elif kind == 'det':
+                x3d, x2d, w2d, cam, bounds, pose0 = det_pnp_problem(
+                    torch, device, b, n, 60 + n)
+                args = (x3d, x2d, w2d, cam,
+                        torch.full((b,), 10.0 / n, device=device), pose0)
+                kw['bounds'] = bounds
+            else:
+                p = make_bounded_pnp_problem(b, n, 80 + n, dof, init_noise=(
+                    (0.3, 0.5) if n == 16 else (0.05, 0.1)))
+                t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                     for k, v in p.items()}
+                args = (t['x3d'], t['x2d'], t['w2d'],
+                        k1.camera_to_fxfycxcy(t['cams']).contiguous(),
+                        t['delta'], t['pose0'])
+                kw.update(bounds=t['bounds'], with_jtj=n > 16)
+            ct = k1.lm_solve_reference(*args, **kw)[1].cpu().numpy()
+            picked, times = picker(b, n), {}
+            for g in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+                if not picked // 8 <= g <= picked * 8:
+                    continue
+                k1.group_size = lambda b_, n_, g=g: g
+                run = lambda: k1.lm_solve_cuda(*args, **kw)  # noqa: E731
+                ck = run()[1].cpu().numpy()
+                times[g] = dict(device_ms=device_ms(torch, run,
+                                                    'lm_solve_kernel'),
+                                cost_agree=float(agree(ck, ct, K1_RTOL,
+                                                       0.0).mean()))
+            k1.group_size = picker
+            best = min(times, key=lambda g: times[g]['device_ms'])
+            print('phase a-groups: K1 ' + json.dumps(dict(
+                dof=dof, B=b, N=n, num_iter=iters, fast_mode=fast,
+                bounds='bounds' in kw, picked=picked, fastest=best,
+                by_group=times)))
+    finally:
+        k1.group_size = picker
 
 
 def phase_b(torch, device):
@@ -412,23 +571,24 @@ def phase_b(torch, device):
     err = float(np.abs(ck_n - ct_n).max())
     ms = time_ms(torch, run_k, iters=10)
     plain_ms = time_ms(torch, run_t, iters=3)
-    print('phase b: K2 ' + json.dumps(dict(
-        B=b, N=n, median_cost=med_k, twin_median_cost=med_t,
-        consistency=float(consist), per_object_agree=float(replay),
-        max_abs_cost_err=err, ms=ms, plain_ms=plain_ms)))
-    assert replay >= K1_MIN_FRAC, 'K2 disagrees with its twin per object'
-    assert med_k <= K2_MEDIAN_RATIO * med_t, 'K2 init worse than 2x twin'
-    assert consist == 1.0, 'K2 cost is not the cost of its pose'
     props, pts, iters = kw['num_proposals'], kw['num_points'], kw['num_iter']
     flops = b * props * (K1_POINT_FLOPS[6] * pts * (iters + 1)
                          + K2_SCORE_FLOPS * kw['score_points'])
     bound, by = bound_ms(flops, b * (28 * n + 4 * (4 + 1 + 1 + 7 + 1)))
-    print(f'phase b: K2 bound {bound:.4f} ms ({by})')
+    dev_ms = device_ms(torch, run_k, 'rslm_init_kernel')
+    print('phase b: K2 ' + json.dumps(dict(
+        B=b, N=n, median_cost=med_k, twin_median_cost=med_t,
+        consistency=float(consist), per_object_agree=float(replay),
+        max_abs_cost_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, bound_share=bound / ms)))
+    assert replay >= K1_MIN_FRAC, 'K2 disagrees with its twin per object'
+    assert med_k <= K2_MEDIAN_RATIO * med_t, 'K2 init worse than 2x twin'
+    assert consist == 1.0, 'K2 cost is not the cost of its pose'
     return dict(name='rslm_init (K2)', route='cuda',
                 source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
                 replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:817',
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 LEGACY_CASES = [  # (N, num_points, dof): 128 % 24 != 0, N % 128 != 0
@@ -520,7 +680,9 @@ def phase_b_legacy(torch, device, b=1024):
             kernel_vs_f64_cost_agree=float(kernel64),
             consistency=float(consist), beats_gt_plus_1m=beats,
             median_cost=float(np.median(ck_n)), max_abs_cost_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            ms=ms, device_ms=device_ms(torch, run_k, 'rslm_init_kernel'),
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            bound_share=bound / ms)
         print('phase b+: K2 legacy ' + json.dumps(row))
         assert replay >= K1_MIN_FRAC or kernel64 >= spread - 0.005, \
             'K2 legacy disagrees with its twin'
@@ -532,7 +694,8 @@ def phase_b_legacy(torch, device, b=1024):
                 source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
                 replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:931',
                 max_abs_err=max(r['max_abs_cost_err'] for r in rows),
-                ms=main['ms'], plain_ms=main['plain_ms'],
+                ms=main['ms'], device_ms=main['device_ms'],
+                plain_ms=main['plain_ms'],
                 bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                 library_ms=None)
 
@@ -719,7 +882,8 @@ def phase_d(torch, device):
         'bench: non-finite pose or cost'
     at_gt = float((c <= cg * 1.01).mean())
     ms_k = time_ms(torch, run_kernel, warmup=2, iters=10)
-    profile_once(torch, run_kernel, 'bench')
+    kernels, _ = profile_once(torch, run_kernel, 'bench')
+    busy = sum(k[1] for k in kernels)  # device ms of one solve
     ms_t = time_ms(torch, run_twin, warmup=1, iters=3)
     print('phase d: bench ' + json.dumps(dict(
         B=b, N=x3d.shape[1], median_cost=float(np.median(c)),
@@ -727,7 +891,11 @@ def phase_d(torch, device):
         gt_pose_median_cost=float(np.median(cg)),
         frac_cost_le_gt_1pct=at_gt,
         kernel_solves_per_s=b / (ms_k / 1e3),
-        twin_solves_per_s=b / (ms_t / 1e3), kernel_ms=ms_k, twin_ms=ms_t)))
+        twin_solves_per_s=b / (ms_t / 1e3), kernel_ms=ms_k, twin_ms=ms_t,
+        device_busy_ms=busy, device_solves_per_s=b / max(busy, 1e-9) * 1e3,
+        k1_device_ms=sum(k[1] for k in kernels if 'lm_solve_kernel' in k[0]),
+        k2_device_ms=sum(k[1] for k in kernels
+                         if 'rslm_init_kernel' in k[0]))))
     assert at_gt >= 0.95, 'bench: fewer than 95% of solves reach the GT cost'
     assert np.isfinite(ct).all()
 
@@ -989,13 +1157,16 @@ def phase_f(torch, device):
         plain_ms = time_ms(torch, run_t, iters=5)
         bound, by = k1_bound(b, n, 4, iters)
         row = dict(B=b, N=n, num_iter=iters, what=what,
-                   objects_past_bounds=clamped,
+                   group=k1_group(b, n), objects_past_bounds=clamped,
                    twin_finite=float(finite.mean()),
                    cost_agree=float(frac_c), pose_agree=float(frac_p),
                    twin_f32_vs_f64_cost_agree=float(spread_c),
                    twin_f32_vs_f64_pose_agree=float(spread_p),
                    max_abs_cost_err=float(np.nanmax(np.abs(ck - ct))),
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                   ms=ms,
+                   device_ms=device_ms(torch, run_k, 'lm_solve_kernel'),
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   bound_share=bound / ms)
         # the kernel against the f64 twin, beside the f32 twin against it:
         # where the problem itself amplifies f32 rounding (objects whose
         # clamped points keep their Jacobian rows in fast mode), the f32
@@ -1391,7 +1562,8 @@ def phase_i(torch, device):
         lo, hi = p['bounds'][:, None, :2], p['bounds'][:, None, 2:]
         past = ((p['x2d'] < lo) | (p['x2d'] > hi)).any(-1)
         row = dict(dof=dof, B=b, N=n, num_iter=iters, with_jtj=jtj,
-                   what=what, points_past_bounds=float(past.mean()),
+                   what=what, group=k1_group(b, n),
+                   points_past_bounds=float(past.mean()),
                    objects_past_bounds=float(past.any(-1).mean()),
                    cost_agree=frac_close(ok_[1], ot[1]),
                    pose_agree=frac_close(ok_[0], ot[0], 1e-2),
@@ -1416,10 +1588,12 @@ def phase_i(torch, device):
             row['twin_f32_vs_f64_jtj_max_rel_err'] = float(
                 rel(ot[2], o64[2])[same].max())
         row['ms'] = time_ms(torch, run_k, iters=20)
+        row['device_ms'] = device_ms(torch, run_k, 'lm_solve_kernel')
         row['plain_ms'] = time_ms(torch, run_t, iters=5)
         # the JtJ output adds its lower triangle to the bytes written
         bound, by = k1_bound(b, n, dof, iters + 1)
         row['bound_ms'], row['bound_by'] = bound, by
+        row['bound_share'] = bound / row['ms']
         print('phase i: K1 training mode ' + json.dumps(row))
         assert finite, 'K1 non-finite in a training mode'
         assert row['cost_agree'] >= K1_MIN_FRAC or (
@@ -1439,7 +1613,8 @@ def phase_i(torch, device):
                 source='epropnp_tpu_torch/csrc/lm_kernel.cu',
                 replaces='epropnp_tpu/ops/pnp/pallas_lm.py:396',
                 max_abs_err=max(r['max_abs_cost_err'] for r in rows),
-                ms=main['ms'], plain_ms=main['plain_ms'],
+                ms=main['ms'], device_ms=main['device_ms'],
+                plain_ms=main['plain_ms'],
                 bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                 library_ms=None)
 
@@ -1876,12 +2051,14 @@ def phase_l(torch, device):
                    twin_median_cost=float(np.median(ct_n)),
                    max_abs_cost_err=float(np.abs(ck_n - ct_n).max()))
         row['ms'] = time_ms(torch, run_k, iters=10)
+        row['device_ms'] = device_ms(torch, run_k, 'rslm_init_kernel')
         row['plain_ms'] = time_ms(torch, run_t, iters=3)
         flops = b * kw['num_proposals'] * (
             K1_POINT_FLOPS[4] * kw['num_points'] * (kw['num_iter'] + 1)
             + K2_SCORE_FLOPS * 128)
         row['bound_ms'], row['bound_by'] = bound_ms(
             flops, b * (28 * 128 + 4 * (4 + 4 + 1 + 1 + 4 + 1)))
+        row['bound_share'] = row['bound_ms'] / row['ms']
         print('phase l: K2 with bounds ' + json.dumps(row))
         assert row['per_object_agree'] >= K1_MIN_FRAC or (
             row['kernel_vs_f64_cost_agree']
@@ -1903,7 +2080,8 @@ def phase_l(torch, device):
                 source='epropnp_tpu_torch/csrc/rslm_kernel.cu',
                 replaces='epropnp_tpu/ops/pnp/pallas_rslm.py:817',
                 max_abs_err=max(r['max_abs_cost_err'] for r in rows),
-                ms=main['ms'], plain_ms=main['plain_ms'],
+                ms=main['ms'], device_ms=main['device_ms'],
+                plain_ms=main['plain_ms'],
                 bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                 library_ms=None)
 
@@ -2240,20 +2418,26 @@ def main(argv=None) -> int:
     print(gpu_name_and_limit())
 
     failed, entries = [], {}
-    spills = k3_spills(log)
-    print(f'ptxas: K3 spill bytes per instance {json.dumps(spills)}')
-    if len(spills) < 4 or any(spills.values()):
-        failed.append('K3: ptxas spills (or fewer than 4 instances)')
+    for kernel, (key, count) in KERNEL_INSTANCES.items():
+        spills = ptxas_spills(log, key)
+        print(f'ptxas: {kernel} spill bytes per instance {json.dumps(spills)}')
+        if len(spills) < count or any(spills.values()):
+            failed.append(f'{kernel}: ptxas spills (or fewer than {count} '
+                          'instances)')
+    if any(r['err'] for r in k1k2_occupancy(kernels.load_library())):
+        failed.append('K1/K2 occupancy query')
     # the kernels against their twins (a, b: K1, K2; b+: K2's legacy
     # layout; e, e+: K3's variants; f: K1 in the Det mode); these launches
     # are not the main run's
-    for name, phase in (('a', phase_a), ('b', phase_b),
+    for name, phase in (('a', phase_a), ('a-groups', phase_a_groups),
+                        ('b', phase_b),
                         ('b+', phase_b_legacy), ('e', phase_e),
                         ('e+', phase_e_variants), ('f', phase_f),
                         ('i', phase_i), ('j card vs CPU', train_card_vs_cpu),
                         ('l', phase_l), ('m', phase_m),
                         ('n card vs CPU', det_train_card_vs_cpu)):
-        if only is not None and name not in only:
+        if (only is None and name in OPT_IN_PHASES) or (
+                only is not None and name not in only):
             continue
         t0 = time.perf_counter()
         try:
@@ -2263,7 +2447,8 @@ def main(argv=None) -> int:
             failed.append(name)
         print(f'wall time of phase {name}: {time.perf_counter() - t0:.1f} s')
     if only is not None:
-        print(json.dumps({'kernels': list(entries.values())}, default=str))
+        print(json.dumps({'kernels': [e for e in entries.values()
+                                      if e is not None]}, default=str))
         if failed:
             print(f'chip_smoke: FAILED phases {failed}', file=sys.stderr)
         return 1 if failed else 0

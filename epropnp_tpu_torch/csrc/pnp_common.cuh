@@ -2,7 +2,8 @@
 // with the IRLS sqrt-derivative rescale, the analytic pose Jacobian, the
 // unrolled damped Cholesky solve and the tangent-space pose update, for
 // 6DoF poses [tx, ty, tz, qw, qi, qj, qk] and 4DoF poses [tx, ty, tz, yaw]
-// (template argument DOF, 6 by default).
+// (template argument DOF, 6 by default); the group reductions and the
+// point staging that both kernels use.
 //
 // The arithmetic follows epropnp_tpu/ops/pnp/pallas_lm.py (_evaluate,
 // _chol_solve, _pose_add) term by term, so the plain PyTorch twins in
@@ -17,6 +18,12 @@
 //     clamp is active (both rows) or where a bound clamp is active (that
 //     row: u strictly inside (lb_u, ub_u) keeps the u row). Fast mode keeps
 //     them, also at an active bound clamp.
+// Every division stays a division, as in the twins: a reciprocal taken
+// once and multiplied rounds otherwise, and f32 rounding decides the
+// near-tied objects that the agreement checks count. Products with the
+// Jacobian's structural zeros (u does not depend on ty, v not on tx) are
+// left out of the sums: for finite values each point's rounded terms are
+// the same bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,6 +68,106 @@ __device__ __forceinline__ Bounds load_bounds(const float* bounds, int b) {
   return Bounds{bounds[b * 4 + 0], bounds[b * 4 + 1], bounds[b * 4 + 2],
                 bounds[b * 4 + 3]};
 }
+
+// ---- the points of one object ----
+//
+// A point is (x, y, z, u, v, wu, wv). Staged, an object's points sit in
+// shared memory as two float4 planes, a = (x, y, z, u) and c = (v, wu, wv,
+// 0), so that neighbouring threads reading neighbouring points make
+// conflict-free 16-byte loads; unstaged (more points than shared memory
+// holds), they are read from device memory. The choice is one uniform
+// branch a point: hoisting it out of the loops (one loop a source)
+// changed the compiler's contractions and register use for the worse.
+struct Pt {
+  float x, y, z, u, v, wu, wv;
+};
+
+struct PointSource {
+  const float4* a;  // staged planes (null: read device memory)
+  const float4* c;
+  const float* x3d;  // the object's rows in device memory
+  const float* x2d;
+  const float* w2d;
+
+  __device__ __forceinline__ Pt operator()(int n) const {
+    if (a != nullptr) {
+      const float4 p = a[n], q = c[n];
+      return Pt{p.x, p.y, p.z, p.w, q.x, q.y, q.z};
+    }
+    return Pt{__ldg(x3d + 3 * n), __ldg(x3d + 3 * n + 1),
+              __ldg(x3d + 3 * n + 2), __ldg(x2d + 2 * n),
+              __ldg(x2d + 2 * n + 1), __ldg(w2d + 2 * n),
+              __ldg(w2d + 2 * n + 1)};
+  }
+};
+
+// Copies points [0, n) of one object into the planes (threads ``first``,
+// ``first + step``, ... of the caller's group); a barrier must follow.
+__device__ __forceinline__ void stage_points(float4* a, float4* c,
+                                             const float* x3d,
+                                             const float* x2d,
+                                             const float* w2d, int n,
+                                             int first, int step) {
+  for (int i = first; i < n; i += step) {
+    a[i] = make_float4(__ldg(x3d + 3 * i), __ldg(x3d + 3 * i + 1),
+                       __ldg(x3d + 3 * i + 2), __ldg(x2d + 2 * i));
+    c[i] = make_float4(__ldg(x2d + 2 * i + 1), __ldg(w2d + 2 * i),
+                       __ldg(w2d + 2 * i + 1), 0.f);
+  }
+}
+
+// ---- reductions ----
+
+// Sums K values over each aligned group of ``width`` lanes (a power of two,
+// at most 32, the same in the whole warp) with an xor butterfly. Addition
+// commutes, so every lane of a group ends with bit-identical sums. The
+// whole warp must call it.
+template <int K>
+__device__ __forceinline__ void group_allreduce(float* v, int width) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off < width) {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void warp_allreduce(float* v) {
+  group_allreduce<K>(v, 32);
+}
+
+// One level of the reduce-scatter below: lanes with bit H keep the upper
+// half of the H * 2 values they carry, the others the lower half, and each
+// adds its partner's copy of the half it keeps.
+template <int H>
+__device__ __forceinline__ void reduce_scatter_level(float* v, int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) reduce_scatter_level<H / 2>(v, lane);
+}
+
+// Reduce-scatter over the warp (K <= 32): lane l returns the warp's sum of
+// v[l] (0 for l >= K). Each level halves the values a lane carries, so it
+// takes 31 shuffles where an all-reduce of K values takes 5 K.
+template <int K>
+__device__ __forceinline__ float warp_reduce_scatter(const float* in) {
+  static_assert(K <= 32, "at most one value a lane");
+  float v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) v[i] = i < K ? in[i] : 0.f;
+  reduce_scatter_level<16>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// ---- per point ----
 
 // Rotation matrix (row major) and translation of a pose.
 template <int DOF = 6>
@@ -135,15 +242,13 @@ __device__ __forceinline__ float huber_cost(float ss, float s_sqrt,
 template <int DOF = 6, bool BOUNDS = false>
 __device__ __forceinline__ float point_cost(const float* r, const float* t,
                                             const ObjParams& o, float z_min,
-                                            const Bounds& bnd, float x,
-                                            float y, float z, float ut,
-                                            float vt, float wu, float wv) {
-  Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+                                            const Bounds& bnd, const Pt& q) {
+  Proj p = project<DOF>(r, t, o, z_min, q.x, q.y, q.z);
   if constexpr (BOUNDS) {
     p.u = fminf(fmaxf(p.u, bnd.lb_u), bnd.ub_u);
     p.v = fminf(fmaxf(p.v, bnd.lb_v), bnd.ub_v);
   }
-  const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
+  const float ru = (p.u - q.u) * q.wu, rv = (p.v - q.v) * q.wv;
   const float ss = ru * ru + rv * rv;
   return huber_cost(ss, sqrtf(fmaxf(ss, 1e-24f)), o.delta);
 }
@@ -155,9 +260,8 @@ __device__ __forceinline__ float point_cost(const float* r, const float* t,
 template <bool CLIP, int DOF = 6, bool BOUNDS = false>
 __device__ __forceinline__ void accumulate_point(
     const float* r, const float* t, const ObjParams& o, float z_min,
-    const Bounds& bnd, float x, float y, float z, float ut, float vt,
-    float wu, float wv, float& cost, float* jtj, float* g) {
-  Proj p = project<DOF>(r, t, o, z_min, x, y, z);
+    const Bounds& bnd, const Pt& q, float& cost, float* jtj, float* g) {
+  Proj p = project<DOF>(r, t, o, z_min, q.x, q.y, q.z);
   float in_u = 1.f, in_v = 1.f;
   if constexpr (BOUNDS) {
     in_u = (p.u > bnd.lb_u && p.u < bnd.ub_u) ? 1.f : 0.f;
@@ -165,7 +269,7 @@ __device__ __forceinline__ void accumulate_point(
     p.u = fminf(fmaxf(p.u, bnd.lb_u), bnd.ub_u);
     p.v = fminf(fmaxf(p.v, bnd.lb_v), bnd.ub_v);
   }
-  const float ru = (p.u - ut) * wu, rv = (p.v - vt) * wv;
+  const float ru = (p.u - q.u) * q.wu, rv = (p.v - q.v) * q.wv;
   const float ss = ru * ru + rv * rv;
   const float s_sqrt = sqrtf(fmaxf(ss, 1e-24f));
   cost += huber_cost(ss, s_sqrt, o.delta);
@@ -178,8 +282,11 @@ __device__ __forceinline__ void accumulate_point(
   const float du2 = (o.cx - p.u) / p.zc * live_u;
   const float dv1 = o.fy / p.zc * live_v;
   const float dv2 = (o.cy - p.v) / p.zc * live_v;
-  const float swu = wu * rho, swv = wv * rho;
+  const float swu = q.wu * rho, swv = q.wv * rho;
 
+  // ju[1] and jv[0] are structural zeros: a sum with one nonzero product
+  // adds that product rounded alone (__fmul_rn: not fused into the
+  // accumulation), as ju_a ju_b + 0 rounds
   float ju[DOF], jv[DOF];
   ju[0] = du0 * swu;
   ju[1] = 0.f;
@@ -204,10 +311,26 @@ __device__ __forceinline__ void accumulate_point(
 #pragma unroll
   for (int a = 0; a < DOF; ++a) {
 #pragma unroll
-    for (int b = 0; b <= a; ++b) jtj[idx++] += ju[a] * ju[b] + jv[a] * jv[b];
-    g[a] += ju[a] * ru_s + jv[a] * rv_s;
+    for (int b = 0; b <= a; ++b) {
+      const bool has_u = a != 1 && b != 1, has_v = a != 0 && b != 0;
+      if (has_u && has_v)
+        jtj[idx] += ju[a] * ju[b] + jv[a] * jv[b];
+      else if (has_u)
+        jtj[idx] += __fmul_rn(ju[a], ju[b]);
+      else if (has_v)
+        jtj[idx] += __fmul_rn(jv[a], jv[b]);
+      ++idx;
+    }
+    if (a == 0)
+      g[a] += __fmul_rn(ju[a], ru_s);
+    else if (a == 1)
+      g[a] += __fmul_rn(jv[a], rv_s);
+    else
+      g[a] += ju[a] * ru_s + jv[a] * rv_s;
   }
 }
+
+// ---- per object ----
 
 // Solve (damped) x = -g for SPD ``a`` given as its lower triangle.
 template <int DOF = 6>
@@ -265,14 +388,32 @@ __device__ __forceinline__ void pose_add(const float* pose, const float* step,
   out[6] = qk / n;
 }
 
-// One trust-region LM update (pallas_lm.py lm_body). ``ev`` evaluates a
-// pose into (cost, jtj, g). State is updated in place; the accept/reject
-// order is that of the reference.
-template <int DOF = 6, typename Eval>
-__device__ __forceinline__ void lm_trust_region_step(
-    const LMParams& prm, float* pose, float& cost, float* jtj, float* g,
-    float& radius, float& decrease, Eval ev) {
+// Gauss-Newton step of fast mode: the eps-damped solve and the update.
+template <int DOF = 6>
+__device__ __forceinline__ void gn_step(const LMParams& prm,
+                                        const float* jtj, const float* g,
+                                        float* pose) {
   constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
+  float damped[kT], step[kD], pose_new[kP];
+#pragma unroll
+  for (int i = 0; i < kT; ++i) damped[i] = jtj[i];
+#pragma unroll
+  for (int a = 0; a < kD; ++a) damped[a * (a + 1) / 2 + a] += prm.eps;
+  chol_solve<DOF>(damped, g, step);
+  pose_add<DOF>(pose, step, pose_new);
+#pragma unroll
+  for (int i = 0; i < kP; ++i) pose[i] = pose_new[i];
+}
+
+// The first half of one trust-region LM update (pallas_lm.py lm_body):
+// the damped step from the current (jtj, g) and the candidate pose.
+template <int DOF = 6>
+__device__ __forceinline__ void tr_propose(const LMParams& prm,
+                                           const float* pose,
+                                           const float* jtj, const float* g,
+                                           float radius, float* step,
+                                           float* pose_new) {
+  constexpr int kD = DOF, kT = tri<DOF>();
   float damped[kT];
 #pragma unroll
   for (int i = 0; i < kT; ++i) damped[i] = jtj[i];
@@ -283,13 +424,19 @@ __device__ __forceinline__ void lm_trust_region_step(
         d + fminf(fmaxf(d, prm.min_lm_diagonal), prm.max_lm_diagonal) /
                 radius + prm.eps;
   }
-  float step[kD];
   chol_solve<DOF>(damped, g, step);
-  float pose_new[kP];
   pose_add<DOF>(pose, step, pose_new);
-  float cost_new, jtj_new[kT], g_new[kD];
-  ev(pose_new, cost_new, jtj_new, g_new);
+}
 
+// The second half: accept or reject the candidate evaluated at
+// (cost_new, jtj_new, g_new), and the new radius. State is updated in
+// place; the order is that of the reference.
+template <int DOF = 6>
+__device__ __forceinline__ void tr_accept(
+    const LMParams& prm, float* pose, float& cost, float* jtj, float* g,
+    float& radius, float& decrease, const float* step, const float* pose_new,
+    float cost_new, const float* jtj_new, const float* g_new) {
+  constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
   float mcc = 0.f;
 #pragma unroll
   for (int a = 0; a < kD; ++a) {
@@ -318,6 +465,21 @@ __device__ __forceinline__ void lm_trust_region_step(
                  prm.max_trust_region_radius);
   radius = ok ? radius : radius / decrease;
   decrease = ok ? 2.f : decrease * 2.f;
+}
+
+// One trust-region LM update where one thread holds the whole object.
+// ``ev`` evaluates a pose into (cost, jtj, g).
+template <int DOF = 6, typename Eval>
+__device__ __forceinline__ void lm_trust_region_step(
+    const LMParams& prm, float* pose, float& cost, float* jtj, float* g,
+    float& radius, float& decrease, Eval ev) {
+  constexpr int kD = DOF, kP = pose_dim<DOF>(), kT = tri<DOF>();
+  float step[kD], pose_new[kP];
+  tr_propose<DOF>(prm, pose, jtj, g, radius, step, pose_new);
+  float cost_new, jtj_new[kT], g_new[kD];
+  ev(pose_new, cost_new, jtj_new, g_new);
+  tr_accept<DOF>(prm, pose, cost, jtj, g, radius, decrease, step, pose_new,
+                 cost_new, jtj_new, g_new);
 }
 
 }  // namespace epropnp

@@ -34,12 +34,27 @@
 // clamped coordinate loses only its own Jacobian row; "inside" is strict,
 // lb < u < ub, as in JAX.
 //
-// What bounds it on an H100: issue latency of small dependent scalar work.
+// What bounds it on an H100: the latency of small dependent scalar work.
 // Per proposal: a 16-point LM with an unrolled 6x6 Cholesky per step, then
-// a score_n-point cost loop; per object only 28 N bytes are read. Design:
-// one block per object, one thread per proposal; the centre init and the
-// cdf are block reductions/scans in shared memory; each thread runs its
-// proposal's LM in registers over its samples held in shared memory.
+// a score_n-point cost loop; per object only 28 N bytes are read. No
+// tensor-core shape fits 6x6 products (and TF32 could not hold rtol 1e-4),
+// so the design is about occupancy, shared-memory traffic and instruction
+// slots:
+//
+// * One block per object, one thread per proposal (the block rounded up to
+//   whole warps), so a warp runs the serial LM of 32 proposals at once.
+// * The object's points are staged once in shared memory as two float4
+//   planes (pnp_common.cuh; where they fit, up to kStageBytes), read by the
+//   centre init, the cdf, every proposal's LM and the scoring: no point is
+//   read twice from device memory.
+// * A proposal's samples are kept as point indices, [K][P] in shared
+//   memory (neighbouring proposals on neighbouring words: no bank
+//   conflict), not as copies of the 7 floats: about 22 KB a block at B=1024,
+//   N=512, 64 x 16, so 8 blocks fit an SM (the registers allow 8 too) and
+//   B=1024 runs in one wave of 132 SMs.
+// * The cdf is a chunked scan whose chunk totals are scanned by warp
+//   shuffles; the scoring points are read as broadcasts (every proposal
+//   scores the same point at once).
 
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
@@ -50,15 +65,7 @@
 namespace epropnp {
 namespace {
 
-template <int K>
-__device__ __forceinline__ void warp_allreduce(float* v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < K; ++i)
-      v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-  }
-}
+constexpr int kStageBytes = 96 * 1024;
 
 // Sum of K values over the block (blockDim.x a multiple of 32); every
 // thread receives the same sums. ``scratch`` holds 32 * K floats.
@@ -80,6 +87,35 @@ __device__ __forceinline__ void block_allreduce(float* v, float* scratch) {
   __syncthreads();
 }
 
+// Exclusive prefix sum of one value a thread over the block (blockDim.x a
+// multiple of 32): warp shuffles, then the warps' totals scanned by warp 0.
+// ``warp_tot`` holds 32 floats.
+__device__ __forceinline__ float block_exclusive_scan(float v,
+                                                      float* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < nwarps ? warp_tot[lane] : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += y;
+    }
+    if (lane < nwarps) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const float before = __shfl_up_sync(0xffffffffu, incl, 1);
+  return (lane ? before : 0.f) + (warp ? warp_tot[warp - 1] : 0.f);
+}
+
 template <int DOF, bool BOUNDS>
 __global__ void rslm_init_kernel(
     const int* __restrict__ seeds, const float* __restrict__ x3d,
@@ -87,16 +123,16 @@ __global__ void rslm_init_kernel(
     const float* __restrict__ cam, const float* __restrict__ delta,
     const float* __restrict__ bounds, float* __restrict__ pose_out,
     float* __restrict__ cost_out, int N, int P, int K, int score_stride,
-    int score_n, LMParams prm) {
-  extern __shared__ float smem[];
-  const int T = blockDim.x;
-  float* cdf = smem;            // N
-  float* chunk_tot = cdf + N;   // T
-  float* samp = chunk_tot + T;  // P * K * 7: x, y, z, u, v, wu, wv
+    int score_n, int staged, LMParams prm) {
+  extern __shared__ float4 smem4[];
+  float4* plane = smem4;                                    // 2 N if staged
+  float* cdf = reinterpret_cast<float*>(smem4 + (staged ? 2 * N : 0));  // N
+  int* sidx = reinterpret_cast<int*>(cdf + N);              // K * P
   __shared__ float scratch[32 * 5];
   __shared__ float win_key[32];
   __shared__ int win_idx[32];
 
+  const int T = blockDim.x;
   const int b = blockIdx.x;
   const int p = threadIdx.x;
   const ObjParams o = load_obj(cam, delta, b);
@@ -104,36 +140,45 @@ __global__ void rslm_init_kernel(
   const float* px3 = x3d + (size_t)b * N * 3;
   const float* px2 = x2d + (size_t)b * N * 2;
   const float* pw2 = w2d + (size_t)b * N * 2;
+  PointSource pts{nullptr, nullptr, px3, px2, pw2};
+  if (staged) {
+    stage_points(plane, plane + N, px3, px2, pw2, N, p, T);
+    pts.a = plane;
+    pts.c = plane + N;
+    __syncthreads();
+  }
 
   // ---- 1. centre-based translation init (two-pass mean / variance) ----
   const float inv_n = 1.f / (float)N, bessel = 1.f / (float)(N - 1);
   float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   for (int n = p; n < N; n += T) {
-    s[0] += (__ldg(px2 + 2 * n) - o.cx) / o.fx;
-    s[1] += (__ldg(px2 + 2 * n + 1) - o.cy) / o.fy;
-    s[2] += __ldg(px3 + 3 * n);
-    s[3] += __ldg(px3 + 3 * n + 1);
-    s[4] += __ldg(px3 + 3 * n + 2);
+    const Pt q = pts(n);
+    s[0] += (q.u - o.cx) / o.fx;
+    s[1] += (q.v - o.cy) / o.fy;
+    s[2] += q.x;
+    s[3] += q.y;
+    s[4] += q.z;
   }
   block_allreduce<5>(s, scratch);
   float mu[5];
 #pragma unroll
   for (int i = 0; i < 5; ++i) mu[i] = s[i] * inv_n;
-  float q[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float qs[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   for (int n = p; n < N; n += T) {
+    const Pt q = pts(n);
     float d[5];
-    d[0] = (__ldg(px2 + 2 * n) - o.cx) / o.fx - mu[0];
-    d[1] = (__ldg(px2 + 2 * n + 1) - o.cy) / o.fy - mu[1];
-    d[2] = __ldg(px3 + 3 * n) - mu[2];
-    d[3] = __ldg(px3 + 3 * n + 1) - mu[3];
-    d[4] = __ldg(px3 + 3 * n + 2) - mu[4];
+    d[0] = (q.u - o.cx) / o.fx - mu[0];
+    d[1] = (q.v - o.cy) / o.fy - mu[1];
+    d[2] = q.x - mu[2];
+    d[3] = q.y - mu[3];
+    d[4] = q.z - mu[4];
 #pragma unroll
-    for (int i = 0; i < 5; ++i) q[i] += d[i] * d[i];
+    for (int i = 0; i < 5; ++i) qs[i] += d[i] * d[i];
   }
-  block_allreduce<5>(q, scratch);
+  block_allreduce<5>(qs, scratch);
   float var[5];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) var[i] = q[i] * bessel;
+  for (int i = 0; i < 5; ++i) var[i] = qs[i] * bessel;
   float scale;
   if constexpr (DOF == 4) {
     scale = sqrtf(var[3]) / fmaxf(sqrtf(var[1]), 1e-6f);
@@ -149,21 +194,11 @@ __global__ void rslm_init_kernel(
   const int c0 = min(N, p * chunk), c1 = min(N, c0 + chunk);
   float run = 0.f;
   for (int n = c0; n < c1; ++n) {
-    run += (__ldg(pw2 + 2 * n) + __ldg(pw2 + 2 * n + 1)) * 0.5f;
+    const Pt q = pts(n);
+    run += (q.wu + q.wv) * 0.5f;
     cdf[n] = run;
   }
-  chunk_tot[p] = run;
-  __syncthreads();
-  if (p == 0) {
-    float acc = 0.f;
-    for (int i = 0; i < T; ++i) {
-      const float v = chunk_tot[i];
-      chunk_tot[i] = acc;
-      acc += v;
-    }
-  }
-  __syncthreads();
-  const float off = chunk_tot[p];
+  const float off = block_exclusive_scan(run, scratch);
   for (int n = c0; n < c1; ++n) cdf[n] += off;
   __syncthreads();
   const float total = cdf[N - 1];
@@ -176,7 +211,6 @@ __global__ void rslm_init_kernel(
     curandStatePhilox4_32_10_t st;
     curand_init((unsigned long long)(unsigned int)seeds[b],
                 (unsigned long long)p, 0ull, &st);
-    float* my = samp + (size_t)p * K * 7;
     for (int i = 0; i < K; ++i) {
       const float u = curand_uniform(&st) * total;
       // first index whose inclusive cdf reaches u (searchsorted, left)
@@ -186,14 +220,7 @@ __global__ void rslm_init_kernel(
         if (cdf[mid] < u) lo = mid + 1;
         else hi = mid;
       }
-      const int idx = min(lo, N - 1);
-      my[i * 7 + 0] = __ldg(px3 + 3 * idx);
-      my[i * 7 + 1] = __ldg(px3 + 3 * idx + 1);
-      my[i * 7 + 2] = __ldg(px3 + 3 * idx + 2);
-      my[i * 7 + 3] = __ldg(px2 + 2 * idx);
-      my[i * 7 + 4] = __ldg(px2 + 2 * idx + 1);
-      my[i * 7 + 5] = __ldg(pw2 + 2 * idx);
-      my[i * 7 + 6] = __ldg(pw2 + 2 * idx + 1);
+      sidx[i * P + p] = min(lo, N - 1);
     }
     pose[0] = t0[0];
     pose[1] = t0[1];
@@ -225,12 +252,10 @@ __global__ void rslm_init_kernel(
       for (int i = 0; i < kT; ++i) jtj[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < kD; ++i) g[i] = 0.f;
-      for (int i = 0; i < K; ++i) {
-        const float* q7 = my + i * 7;
-        accumulate_point<true, DOF, BOUNDS>(r, t, o, prm.z_min, bnd, q7[0],
-                                            q7[1], q7[2], q7[3], q7[4],
-                                            q7[5], q7[6], c, jtj, g);
-      }
+#pragma unroll 2
+      for (int i = 0; i < K; ++i)
+        accumulate_point<true, DOF, BOUNDS>(r, t, o, prm.z_min, bnd,
+                                            pts(sidx[i * P + p]), c, jtj, g);
     };
     float jtj[kT], g[kD];
     ev(pose, cost, jtj, g);
@@ -243,13 +268,10 @@ __global__ void rslm_init_kernel(
     float r[9], t[3];
     pose_rt<DOF>(pose, r, t);
     cost = 0.f;
-    for (int j = 0; j < score_n; ++j) {
-      const int n = j * score_stride;
-      cost += point_cost<DOF, BOUNDS>(
-          r, t, o, prm.z_min, bnd, __ldg(px3 + 3 * n), __ldg(px3 + 3 * n + 1),
-          __ldg(px3 + 3 * n + 2), __ldg(px2 + 2 * n), __ldg(px2 + 2 * n + 1),
-          __ldg(pw2 + 2 * n), __ldg(pw2 + 2 * n + 1));
-    }
+#pragma unroll 4
+    for (int j = 0; j < score_n; ++j)
+      cost += point_cost<DOF, BOUNDS>(r, t, o, prm.z_min, bnd,
+                                      pts(j * score_stride));
   }
 
   // ---- argmin over proposals: (key, index) lexicographic ----
@@ -292,16 +314,32 @@ int launch(const int* seeds, const float* x3d, const float* x2d,
            const float* bounds, float* pose_out, float* cost_out, int B,
            int N, int P, int K,
            int score_stride, int score_n, const LMParams& prm,
-           cudaStream_t stream) {
+           cudaStream_t stream, int* occ) {
+  auto kernel = rslm_init_kernel<DOF, BOUNDS>;
   const int threads = (P + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * ((size_t)N + threads + (size_t)P * K * 7);
-  cudaError_t err = cudaFuncSetAttribute(
-      rslm_init_kernel<DOF, BOUNDS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rslm_init_kernel<DOF, BOUNDS><<<B, threads, smem, stream>>>(
+  const size_t stage = sizeof(float4) * 2 * (size_t)N;
+  const int staged = stage <= (size_t)kStageBytes ? 1 : 0;
+  const size_t smem = (staged ? stage : 0) +
+                      sizeof(float) * ((size_t)N + (size_t)P * K);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (occ != nullptr) {  // resources only, as epropnp_lm_occupancy
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[3], kernel,
+                                                          threads, smem);
+    occ[0] = attr.numRegs;
+    occ[1] = threads;
+    occ[2] = (int)smem;
+    return (int)err;
+  }
+  kernel<<<B, threads, smem, stream>>>(
       seeds, x3d, x2d, w2d, cam, delta, bounds, pose_out, cost_out, N, P, K,
-      score_stride, score_n, prm);
+      score_stride, score_n, staged, prm);
   return (int)cudaGetLastError();
 }
 
@@ -334,7 +372,8 @@ extern "C" int epropnp_rslm_init(
 #define EPROPNP_RSLM_LAUNCH(D, BND)                                        \
   return epropnp::launch<D, BND>(seeds, x3d, x2d, w2d, cam, delta, bounds, \
                                  pose_out, cost_out, B, N, num_proposals,  \
-                                 num_points, score_stride, score_n, prm, s)
+                                 num_points, score_stride, score_n, prm, s, \
+                                 nullptr)
   if (dof == 4) {
     if (bounds) EPROPNP_RSLM_LAUNCH(4, true);
     EPROPNP_RSLM_LAUNCH(4, false);
@@ -342,4 +381,27 @@ extern "C" int epropnp_rslm_init(
   if (bounds) EPROPNP_RSLM_LAUNCH(6, true);
   EPROPNP_RSLM_LAUNCH(6, false);
 #undef EPROPNP_RSLM_LAUNCH
+}
+
+// Resources of the instance (dof, bounds: 0 or 1) for N points, P
+// proposals of K points, without a launch: ``out`` receives registers a
+// thread, threads a block, dynamic shared memory (bytes) and resident
+// blocks an SM. Returns a cudaError_t.
+extern "C" int epropnp_rslm_occupancy(int dof, int bounds, int N, int P,
+                                      int K, int* out) {
+  if (N < 2 || K < 1 || P < 1 || P > 1024 || (dof != 4 && dof != 6))
+    return (int)cudaErrorInvalidValue;
+  const epropnp::LMParams prm{};
+#define EPROPNP_RSLM_OCC(D, BND)                                          \
+  return epropnp::launch<D, BND>(nullptr, nullptr, nullptr, nullptr,      \
+                                 nullptr, nullptr, nullptr, nullptr,      \
+                                 nullptr, 1, N, P, K, 1, N, prm, nullptr, \
+                                 out)
+  if (dof == 4) {
+    if (bounds) EPROPNP_RSLM_OCC(4, true);
+    EPROPNP_RSLM_OCC(4, false);
+  }
+  if (bounds) EPROPNP_RSLM_OCC(6, true);
+  EPROPNP_RSLM_OCC(6, false);
+#undef EPROPNP_RSLM_OCC
 }

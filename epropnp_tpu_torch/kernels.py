@@ -31,9 +31,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (see the ``extern "C"`` functions).
 _SIGNATURES = {
-    'epropnp_lm_solve': [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
+    'epropnp_lm_solve': [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P],
     'epropnp_rslm_init': [_P] * 9 + [_I] * 8 + [_F] * 7 + [_P],
     'epropnp_dcn_forward': [_P] * 6 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
+    'epropnp_lm_occupancy': [_I] * 6 + [_P],
+    'epropnp_rslm_occupancy': [_I] * 5 + [_P],
 }
 
 

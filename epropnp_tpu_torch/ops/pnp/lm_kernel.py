@@ -1,11 +1,12 @@
 """K1: the fused batched LM / Gauss-Newton PnP solve, and its plain twin.
 
 ``lm_solve`` is what the solver calls. On a CUDA tensor it launches the
-hand-written kernel of ``csrc/lm_kernel.cu`` (one warp per object) or
-raises; on a CPU tensor it runs :func:`lm_solve_reference`, the same
-function written with torch ops. The twin follows the arithmetic of the
-kernel term by term (``_evaluate`` below mirrors ``pnp_common.cuh``), so
-the two differ only in summation order.
+hand-written kernel of ``csrc/lm_kernel.cu`` (a group of
+:func:`group_size` threads per object) or raises; on a CPU tensor it runs
+:func:`lm_solve_reference`, the same function written with torch ops.
+The twin follows the arithmetic of the kernel term by term (``_evaluate``
+below mirrors ``pnp_common.cuh``), so the two differ only in summation
+order and the kernel's fused multiply-adds.
 
 Scope: zero-skew pinhole cameras given as (B, 4) ``[fx, fy, cx, cy]`` and
 per-object Huber deltas. Both the kernel and the twin run fast mode and
@@ -29,6 +30,35 @@ import torch
 # launch with the JtJ output).
 launches = 0
 launches_train = 0
+
+# K1's launch shape (csrc/lm_kernel.cu): the most threads that share one
+# object, and the resident threads below which the picker spreads an
+# object over more threads (1024 warps, about 8 an SM of an H100's 132).
+MAX_GROUP = 512
+TARGET_THREADS = 1024 * 32
+
+
+def group_size(b: int, n: int) -> int:
+    """Threads that share one object in the K1 kernel, a power of two.
+
+    Up to a warp, at most 4 points a thread; past a warp (a block whose
+    first warp runs the solver's tail behind two barriers an evaluation),
+    at most 8 points a thread, up to ``MAX_GROUP`` threads. Then, while
+    ``b`` groups leave the card short of ``TARGET_THREADS``, twice as many
+    threads: up to a warp while every thread keeps a point (a latency-bound
+    solve gains from the warp's short reduce-scatter), past that while
+    every thread keeps 2 points. (H100 device times of the main shapes over
+    the group sizes: PERF.md.)
+    """
+    g = 1
+    while g < 32 and 4 * g < n:
+        g *= 2
+    while g < MAX_GROUP and 8 * g < n:
+        g *= 2
+    while (g < MAX_GROUP and b * g < TARGET_THREADS
+           and ((g <= n and 2 * g <= 32) or 4 * g <= n)):
+        g *= 2
+    return g
 
 
 def camera_to_fxfycxcy(cam_mats: torch.Tensor) -> torch.Tensor:
@@ -322,9 +352,8 @@ def lm_solve_cuda(x3d, x2d, w2d, cam_fxfycxcy, delta, pose_init,
         err = lib.epropnp_lm_solve(
             ptr(x3d), ptr(x2d), ptr(w2d), ptr(cam_fxfycxcy), ptr(delta),
             ptr(bounds), ptr(pose_init), ptr(pose), ptr(cost), ptr(tri), b,
-            n, dof,
-            int(fast_mode), num_iter, z_min, eps, min_lm_diagonal,
-            max_lm_diagonal, min_relative_decrease,
+            n, dof, group_size(b, n), int(fast_mode), num_iter, z_min, eps,
+            min_lm_diagonal, max_lm_diagonal, min_relative_decrease,
             initial_trust_region_radius,
             max_trust_region_radius, ctypes.c_void_p(stream))
     check_launch(err, 'epropnp_lm_solve')

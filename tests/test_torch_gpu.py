@@ -36,16 +36,27 @@ def make_problem(b, n, seed, device, init_noise=0.05):
             for k in ('x3d', 'x2d', 'w2d', 'cams', 'pose0')]
 
 
-@pytest.mark.parametrize('b,n,fast', [(2048, 16, True), (32, 4096, True),
-                                      (1024, 512, False)])
-def test_lm_kernel_matches_twin(cuda_device, b, n, fast):
-    """K1 at the serving and bench shapes: 99% of the objects agree with
-    the twin on the final cost at rtol 1e-4 (summation order differs, so a
+@pytest.mark.parametrize('b,n,fast,num_iter', [
+    (2048, 16, True, 3), (32, 4096, True, 3), (1024, 512, False, 10),
+    # launch shapes (lm_kernel.group_size): groups of 2 (N=1) and 4 (N=2)
+    # threads, where a solve is ill-posed (JtJ of rank 2 or 4) and f32
+    # rounding decides its steps, so the sums of the one evaluation are
+    # held; groups of 4 (N=15), 16 (N=16) and 8 (N=17) threads; B not a
+    # multiple of the groups of a block in each; a warp a group (N=128)
+    # with B not a multiple of 4; blocks of 64 (N=129), 256 (B=31, N=512)
+    # and 512 (N=4096) threads
+    (1000, 1, False, 0), (999, 2, False, 0), (9000, 15, True, 3),
+    (3001, 16, False, 10), (5001, 17, True, 3), (3001, 128, False, 10),
+    (257, 129, False, 10), (31, 512, False, 10), (33, 4096, False, 10)])
+def test_lm_kernel_matches_twin(cuda_device, b, n, fast, num_iter):
+    """K1 at the serving and bench shapes, and at the edges of its launch
+    shapes (``lm_kernel.group_size``): 99% of the objects agree with the
+    twin on the final cost at rtol 1e-4 (summation order differs, so a
     near-tie accept/reject may flip)."""
     x3d, x2d, w2d, cams, pose0 = make_problem(b, n, 1, cuda_device)
     cam4 = lm_kernel.camera_to_fxfycxcy(cams).contiguous()
     delta = torch.full((b,), 10.0 / n, device=cuda_device)
-    kw = dict(dof=6, num_iter=3 if fast else 10, fast_mode=fast)
+    kw = dict(dof=6, num_iter=num_iter, fast_mode=fast)
     pk, ck = lm_kernel.lm_solve_cuda(x3d, x2d, w2d, cam4, delta, pose0, **kw)
     pt, ct = lm_kernel.lm_solve_reference(x3d, x2d, w2d, cam4, delta, pose0,
                                           **kw)
@@ -107,7 +118,9 @@ def test_solver_on_card_goes_through_both_kernels(cuda_device):
     assert torch.isfinite(pose).all() and torch.isfinite(cost).all()
 
 
-@pytest.mark.parametrize('b,n,num_iter', [(4096, 16, 3), (256, 128, 5)])
+@pytest.mark.parametrize('b,n,num_iter', [
+    (4096, 16, 3), (256, 128, 5),
+    (9000, 15, 3), (5001, 17, 3), (3001, 128, 3), (33, 4096, 3)])
 def test_lm_kernel_dof4_bounds_matches_twin(cuda_device, b, n, num_iter):
     """K1 at dof 4 with projection bounds in fast mode (the Det serving
     solve), as chip_smoke.py phase f holds it: the principal points are
@@ -280,15 +293,24 @@ def test_dcn_kernel_tiling_edges_match_twin(cuda_device, variant, n, shapes,
 
 
 @pytest.mark.parametrize('dof', [4, 6])
-@pytest.mark.parametrize('n,num_points', [(96, 16), (384, 24), (256, 16)])
+@pytest.mark.parametrize('n,num_points,num_proposals', [
+    (96, 16, 64), (384, 24, 64), (256, 16, 64),
+    # proposals filling half a warp, two warps, and 100 (a ragged warp);
+    # N=2 (legacy) and N=512 (packed)
+    (2, 16, 16), (96, 16, 100), (512, 16, 16), (512, 16, 100)])
 def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
-                                               num_points):
+                                               num_points, num_proposals):
     """K2 at dof 4 and 6, at legacy shapes (full-set scoring) and a
     packed one: 99% of the objects on the twin's cost at rtol 1e-4 (the
     same Philox draws), or, where the f32 twin itself misses its f64 run
     that often (dof 4: 98-99% of the objects agree), the kernel as close
     to the f64 twin as the f32 twin is; and the returned cost is the
-    full-set cost of the returned pose at the legacy shapes (rtol 1e-3)."""
+    full-set cost of the returned pose at the legacy shapes (rtol 1e-3).
+    At two points (N=2) every proposal fits both points to about the f32
+    resolution of a projection after its 3 steps, so rounding orders the
+    proposal costs and sets the cost of a pose: there the kernel is held
+    by the bench shape's distributional rule (median within 2x of the
+    twin's) and finiteness."""
     p = make_pnp_problem(512, n, 7, dof=dof)
     x3d, x2d, w2d, cams = (torch.tensor(p[k], dtype=torch.float32,
                                         device=cuda_device)
@@ -297,8 +319,8 @@ def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
     args = (x3d, x2d, w2d, lm_kernel.camera_to_fxfycxcy(cams).contiguous(),
             delta, torch.arange(512, dtype=torch.int32,
                                 device=cuda_device) * 7919)
-    kw = dict(dof=dof, num_points=num_points, num_proposals=64, num_iter=3,
-              score_points=128)
+    kw = dict(dof=dof, num_points=num_points, num_proposals=num_proposals,
+              num_iter=3, score_points=128)
     legacy = not rslm_kernel.packed_layout(n, num_points)
     counter = 'launches_legacy' if legacy else 'launches'
     before = getattr(rslm_kernel, counter)
@@ -311,6 +333,11 @@ def test_rslm_kernel_dof_and_legacy_match_twin(cuda_device, dof, n,
     assert torch.isfinite(pk).all() and torch.isfinite(ck).all()
     frac = lambda a, b_: torch.isclose(  # noqa: E731
         a.double(), b_.double(), rtol=1e-4, atol=0).float().mean()
+    if n == 2:
+        # neither f32 run meets the f64 one for more than a third of the
+        # objects here: the argmin is decided by rounding
+        assert ck.median() <= 2 * ct.median()
+        return
     assert frac(ck, ct) >= 0.99 or frac(ck, c64) >= frac(ct, c64) - 0.005
     if legacy:
         ev = tpnp.evaluate_pnp(
@@ -328,7 +355,12 @@ def _frac_close(a, b_, floor=0.0):
 
 
 @pytest.mark.parametrize('dof,b,n,num_iter,jtj', [
-    (6, 128, 16, 3, False), (6, 32, 512, 5, True), (4, 1536, 128, 10, True)])
+    (6, 128, 16, 3, False), (6, 32, 512, 5, True), (4, 1536, 128, 10, True),
+    # launch shapes (see test_lm_kernel_matches_twin; at N=2 the sums of
+    # the one evaluation)
+    (4, 999, 2, 0, True), (4, 9000, 15, 5, False),
+    (6, 5001, 17, 3, True), (4, 3001, 128, 5, True), (6, 257, 129, 5, True),
+    (4, 33, 4096, 3, True)])
 def test_lm_kernel_training_modes_match_twin(cuda_device, dof, b, n,
                                              num_iter, jtj):
     """K1 in the trust region with projection bounds (and the JtJ output)

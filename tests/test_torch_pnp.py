@@ -294,6 +294,31 @@ def test_lm_kernel_takes_dof4_with_bounds_in_fast_mode():
     close(cost, ref_cost, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize('b,n,group', [
+    (1024, 512, 64),    # the bench solve: 8 points a thread, 2 warps
+    (2048, 16, 16),     # CDPN serving proposals: a point a thread
+    (32, 4096, 512),    # CDPN serving refine: the largest group
+    (98304, 16, 4),     # Det serving proposals: 4 points a thread
+    (1536, 128, 32),    # Det refine and training solve: a warp
+    (128, 16, 32),      # 6DoF training proposals: a warp, half idle
+    (32, 512, 256),     # 6DoF training solve: 2 points a thread
+    (1000, 1, 2), (999, 2, 4), (9000, 15, 4), (3001, 16, 16),
+    (5001, 17, 8), (257, 129, 64), (5, 100000, 512)])
+def test_lm_kernel_group_size(b, n, group):
+    """K1's launch shape: a power of two within the block limit; its
+    threads cover every point (thread i takes points i, i + G, ...), at
+    most 4 points a thread in a group of a warp or less and 8 in a larger
+    one where the limit allows, and at most half a group without a point;
+    the main path's shapes get the group the design intends."""
+    g = lm_kernel.group_size(b, n)
+    assert g == group
+    assert g & (g - 1) == 0 and 1 <= g <= lm_kernel.MAX_GROUP
+    covered = {i for lane in range(g) for i in range(lane, n, g)}
+    assert covered == set(range(n))
+    assert -(-n // g) <= (4 if g <= 32 else 8) or g == lm_kernel.MAX_GROUP
+    assert g <= 2 * n
+
+
 def test_port_never_loads_jax():
     code = ('import sys, epropnp_tpu_torch, epropnp_tpu_torch.sixdof.test, '
             'epropnp_tpu_torch.utils.convert, '
