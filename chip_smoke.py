@@ -44,7 +44,8 @@ e+. K3's int8 variant (bf16 weight) and bf16 variant at the v1b_serving
    beside each time its share of the bound and the bf16 product of the
    pre-sampled stack.
 f. K1 at dof 4 with projection bounds in fast mode (the Det solve) against
-   its twin (and an f64 twin) at (98304, 16) x 3 and (1536, 128) x 5.
+   its twin (and an f64 twin) at (98304, 16) x 3, (1536, 128) x 5 and
+   (1536, 256) x 5 (the flip-TTA refine).
 g. Det serving: EPro-PnP-Det v1b (ResNet-101-DCN, FPN, FCOSEmbHead,
    DeformPnPHead, the 4DoF solve) on seeded random weights answers 3
    requests of 6 camera frames (1600x900, sky-cropped to 1600x672) through
@@ -86,10 +87,37 @@ n. Det training: ``det.main.train_loop`` at ``DetConfig.v1b()`` width with
    nothing else; then one step profiled by kind. Before it (not counted),
    one reduced step (ResNet-18, 64x64, DCN in the towers) on the card and
    on the CPU in f32 and f64 with the draws replayed.
+o. Det serving from a checkpoint with flip TTA at ``DetConfig.v1b()``:
+   phase g's seeded weights written as an mmdet-named ``.pth`` and as a
+   flax msgpack file (``utils.convert.det_variables`` and this script's
+   ``pack_msgpack``), each loaded by ``det.api.init_detector``; phase g's
+   request 1 through either loaded model equals the same request through
+   phase g's model bit for bit (the ``.pth`` model at mmcv's modulation
+   scale 1.0, which its ``conv_offset`` keys select, against phase g's
+   model at that scale). Then 3 TTA requests of 6 frames
+   (``inference_detector(tta=True)``), each launching K3 72 times and K1
+   twice, a profile by kind, ``det.test.mc_score_and_orient_density`` on
+   the last request's problem (K1 once in fast mode and once with its JtJ;
+   the yaw density integrates to 1), and a 320x800 TTA request on the card
+   against the CPU twins under phase g's rules.
+p. 6DoF evaluation: ``sixdof.main.test_loop`` on a full-width CDPN-34
+   checkpoint written by ``utils.checkpoint.save_checkpoint`` (seeded
+   weights, BatchNorm calibrated), 96 seeded synthetic crops of 256x256 in
+   3 batches of 32, first with ``init='epnp_device'`` (K1 once a batch),
+   then ``init='rslm'`` (K1 twice a batch); each batch's wall and
+   ``PoseEvaluator``'s metrics are printed, and the first batch's model
+   outputs go through ``infer_poses`` on the card and on the CPU twins
+   (phase c's rule).
+   ``init='epnp'`` (host ``cv2.solvePnP``) is not driven: the GPU machine
+   has no cv2.
 
 Every launch counter is set to 0 just before each path that a user's
-call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k and n)
-and read just after it. Each phase's wall time is printed. Earlier lines
+call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k, n, o
+and p with each init) and read just after it. In every path the same
+convention holds: the launches of a check of the card against the CPU
+twins made inside the path (c, d, g, h, o, p) are taken back out of its
+counts (``uncounted``), while a profiled repeat of the path's own call
+counts. Each phase's wall time is printed. Earlier lines
 print each phase's numbers, the card's ``nvidia-smi`` name and power
 limit, and one JSON object with a row per kernel; the last line is
 ``{"ok": true, "device": {...}}``. The run fails if ptxas reports spill
@@ -258,7 +286,8 @@ def k1k2_occupancy(lib):
     k1 = [  # (dof, fast, bounds, jtj, B, N): phases a, f and i
         (6, 1, 0, 0, 2048, 16), (6, 1, 0, 0, 32, 4096),
         (6, 0, 0, 0, 1024, 512), (4, 1, 1, 0, 98304, 16),
-        (4, 1, 1, 0, 1536, 128), (6, 0, 1, 0, 128, 16),
+        (4, 1, 1, 0, 1536, 128), (4, 1, 1, 0, 1536, 256),
+        (4, 1, 1, 1, 1536, 256), (6, 0, 1, 0, 128, 16),
         (6, 0, 1, 1, 32, 512), (4, 0, 1, 1, 1536, 128)]
     for dof in (4, 6):  # the other instances at the bench shape
         for fast in (0, 1):
@@ -417,6 +446,17 @@ def launch_counts():
     return {k: getattr(m, a) for k, (m, a) in kernel_counters().items()}
 
 
+def uncounted(fn):
+    """``fn()`` with every launch counter put back afterwards: launches made
+    to hold the card against the CPU twins are not the path's."""
+    saved = launch_counts()
+    try:
+        return fn()
+    finally:
+        for key, (mod, attr) in kernel_counters().items():
+            setattr(mod, attr, saved[key])
+
+
 def drive(torch, fn):
     """Run one path of the main run with every launch counter set to 0
     just before it; returns the counts read just after it."""
@@ -488,7 +528,7 @@ def phase_a_groups(torch, device):
         (6, 1024, 512, 10, False, 'bench'),
         (6, 2048, 16, 3, True, 'bench'), (6, 32, 4096, 3, True, 'bench'),
         (4, 98304, 16, 3, True, 'det'), (4, 1536, 128, 5, True, 'det'),
-        (6, 128, 16, 3, False, 'bounded'), (6, 32, 512, 5, False, 'bounded'),
+        (4, 1536, 256, 5, True, 'det'), (6, 128, 16, 3, False, 'bounded'), (6, 32, 512, 5, False, 'bounded'),
         (4, 1536, 128, 10, False, 'bounded')]
     try:
         for i, (dof, b, n, iters, fast, kind) in enumerate(shapes):
@@ -779,11 +819,12 @@ def serving_requests(torch, device, num_requests=3, bs=32, depth=34,
             k1_launches.append(lm_kernel.launches - k1_before)
     if device.type == 'cuda':
         profile_once(torch, lambda: request(batch, box, gen), 'serving')
-    return lat, poses, k1_launches, twin_path_agreement(
-        torch, model, batch, box, cam, cfg)
+    return lat, poses, k1_launches, uncounted(lambda: twin_path_agreement(
+        torch, model, batch, box, cam, cfg))
 
 
-def twin_path_agreement(torch, model, batch, box, cam, cfg, seed=123):
+def twin_path_agreement(torch, model, batch, box, cam, cfg, seed=123,
+                        init='rslm'):
     """``infer_poses`` on the card (kernels) against the same call on CPU
     copies of the model outputs (kernel twins), with the same random draws
     (a CPU generator feeds both). Returns the share of crops whose [R|t]
@@ -798,7 +839,7 @@ def twin_path_agreement(torch, model, batch, box, cam, cfg, seed=123):
             res.append(test_lib.infer_poses(
                 type(outs)(*map(to, outs)), type(batch)(*map(to, batch)),
                 torch.tensor(box, dtype=torch.float32, device=dev), to(cam),
-                cfg, init='rslm', rng=torch.Generator().manual_seed(seed)
+                cfg, init=init, rng=torch.Generator().manual_seed(seed)
             ).pose_est.cpu().numpy())
     return float(agree(res[0], res[1], 1e-3, 1.0).mean())
 
@@ -870,8 +911,8 @@ def phase_d(torch, device):
                           device=device)
 
     def run_twin():
-        return bench_twin_solve(torch, x3d, x2d, w2d, cam, cost_fun, seeds,
-                                solver)
+        return uncounted(lambda: bench_twin_solve(
+            torch, x3d, x2d, w2d, cam, cost_fun, seeds, solver))
 
     pose, cost = run_kernel()
     pose_t, cost_t = run_twin()
@@ -1128,7 +1169,8 @@ def phase_f(torch, device):
     from epropnp_tpu_torch.ops.pnp import lm_kernel as k1
     rows = []
     for b, n, iters, what in ((98304, 16, 3, 'Det RSLM proposals'),
-                              (1536, 128, 5, 'Det refine')):
+                              (1536, 128, 5, 'Det refine'),
+                              (1536, 256, 5, 'Det flip-TTA refine')):
         x3d, x2d, w2d, cam, bounds, pose0 = det_pnp_problem(
             torch, device, b, n, 60 + n)
         delta = torch.full((b,), 10.0 / n, device=device)
@@ -1279,8 +1321,8 @@ def phase_g(torch, device, num_requests=3):
             total_ms=total, k3_ms=k3_ms, cudnn_conv_ms=conv_ms,
             k1_ms=pnp_ms, k3_share=k3_ms / total,
             cudnn_conv_share=conv_ms / total, k1_share=pnp_ms / total)))
-    rel, rel64, pose_close, pose_agree = reduced_size_agreement(
-        torch, model, cfg)
+    rel, rel64, pose_close, pose_agree = uncounted(
+        lambda: reduced_size_agreement(torch, model, cfg))
     print(f'phase g: 320x800 card vs CPU twins: dense max rel err {rel:.3e}'
           f' (rule {DET_DENSE_REL:g}; CPU f32 vs f64 {rel64:.3e}), poses '
           f'within 1e-3 {pose_close:.4f}, or of equal cost {pose_agree:.4f}')
@@ -1375,7 +1417,8 @@ def phase_h(torch, device, num_requests=3):
         print('phase h: device time by kind (ms): ' + json.dumps(dict(
             by_kind, other=rest, device_busy=busy,
             host_gap=wall_ms - busy)))
-    rel, spread = serving_reduced_size(torch, model, cfg, model32, cfg32)
+    rel, spread = uncounted(lambda: serving_reduced_size(
+        torch, model, cfg, model32, cfg32))
     print(f'phase h: 320x800 card vs CPU, both v1b_serving: dense max rel '
           f'err {rel:.3e}; CPU v1b_serving vs CPU f32 v1b {spread:.3e}; '
           f'rule <= {SERVING_SPREAD_FACTOR:g} x that spread')
@@ -1466,18 +1509,19 @@ def time_dense_conv(torch, model):
           f'{heur:.3f} ms with cuDNN default heuristics')
 
 
-def reduced_size_agreement(torch, model, cfg, seed=7):
-    """One 320x800 image: the dense stage on the card (K3) against a CPU
-    copy of the model (K3's twin), then everything after it (subheads,
-    RSLM + K1 or its twin, NMS) from the card's dense outputs on both
+def reduced_size_agreement(torch, model, cfg, seed=7, tta=False):
+    """One 320x800 image (and with ``tta`` its horizontal flip): the dense
+    stage on the card (K3) against a CPU copy of the model (K3's twin),
+    then everything after it (subheads, RSLM + K1 or its twin, NMS; with
+    ``tta`` the flip-TTA post) from the card's dense outputs on both
     devices, with one CPU generator feeding both the same draws.
 
     Returns (max over dense outputs of max|card - cpu| / max|cpu|, the
-    same for the CPU f32 outputs against f64, the share of the objects
-    whose 4DoF pose agrees within 1e-3 * (|ref| + 1), and the share that
-    agrees or whose two poses cost the same within 1e-4 on the CPU's
-    problem: a far object's flat cost valley, where f32 rounding picks
-    another point of equal cost)."""
+    same for the CPU f32 outputs of the image against f64, the share of
+    the objects whose 4DoF pose agrees within 1e-3 * (|ref| + 1), and the
+    share that agrees or whose two poses cost the same within 1e-4 on the
+    CPU's problem: a far object's flat cost valley, where f32 rounding
+    picks another point of equal cost)."""
     import copy
     from epropnp_tpu_torch.det import test as dtest
     from epropnp_tpu_torch.det.pipelines import default_pipeline
@@ -1486,27 +1530,37 @@ def reduced_size_agreement(torch, model, cfg, seed=7):
     imgs, ks = det_frames(seed, num=1, h=320, w=800)
     s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]))
     model_cpu = copy.deepcopy(model).cpu()
-    rel = 0.0
-    poses = []
+    make = dtest.make_tta_inference_fn if tta else dtest.make_inference_fn
+
+    def flat(dense):
+        return [a for d in dense for o in d[0] for a in o] + [
+            a for d in dense for a in d[1:]]
+
+    rel, poses = 0.0, []
     for first, dev, m in ((True, device, model),
                           (False, torch.device('cpu'), model_cpu)):
         t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
             np.asarray(a)[None], dtype=dt).to(dev)
-        infer = dtest.make_inference_fn(m, cfg, min_fcos_score=0.0)
-        dense = infer.dense(t(s['img']))
+        infer = make(m, cfg, min_fcos_score=0.0)
+        img = t(s['img'])
+        dense = [infer.dense(i) for i in (
+            (img, torch.flip(img, [2])) if tta else (img,))]
         if first:
             dense_card = dense
         else:
-            flat_cpu = [a for o in dense[0] for a in o] + list(dense[1:])
-            flat_card = [a for o in dense_card[0] for a in o] + list(
-                dense_card[1:])
+            dense_cpu = dense
             rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
-                      for a, b in zip(flat_card, flat_cpu))
-        moved = ([type(o)(*(a.to(dev) for a in o)) for o in dense_card[0]],
-                 dense_card[1].to(dev), dense_card[2].to(dev))
-        args = (moved, t(ks[0]), t(s['img_shape']), t(s['ori_shape']),
-                t(s['flip'], torch.bool), t(s['img_dense_x2d']),
-                t(s['img_dense_x2d_mask']))
+                      for a, b in zip(flat(dense_card), flat(dense_cpu)))
+        moved = [([type(o)(*(a.to(dev) for a in o)) for o in d[0]],
+                  d[1].to(dev), d[2].to(dev)) for d in dense_card]
+        x2d = t(s['img_dense_x2d'])
+        common = (t(ks[0]), t(s['img_shape']), t(s['ori_shape']))
+        if tta:
+            args = (*moved, *common, x2d, torch.flip(x2d, [2]),
+                    t(s['img_dense_x2d_mask']))
+        else:
+            args = (*moved, *common, t(s['flip'], torch.bool), x2d,
+                    t(s['img_dense_x2d_mask']))
         res = infer.post(*args, rng=torch.Generator().manual_seed(seed))
         poses.append(res.bbox_3d[:, 3:].cpu())
     x3d, x2d, w2d, camera, cost_fun = infer.pnp_problem(*args)[2:]
@@ -1520,11 +1574,11 @@ def reduced_size_agreement(torch, model, cfg, seed=7):
     same_nan = (np.isnan(poses[0]) == np.isnan(poses[1])).all(-1)
     close = agree(np.nan_to_num(poses[0]), np.nan_to_num(poses[1]), 1e-3,
                   1.0) & same_nan
-    flat = agree(costs[0], costs[1], 1e-4, 0.0)
-    flat64 = [a for o in dense64[0] for a in o] + list(dense64[1:])
+    flat_cost = agree(costs[0], costs[1], 1e-4, 0.0)
     rel64 = max(float((a.double() - b).abs().max() / b.abs().max())
-                for a, b in zip(flat_cpu, flat64))
-    return rel, rel64, float(close.mean()), float((close | flat).mean())
+                for a, b in zip(flat(dense_cpu[:1]), flat([dense64])))
+    return rel, rel64, float(close.mean()), float((close | flat_cost).mean())
+
 
 def frac_close(a, b, floor=0.0):
     """Share of rows whose every entry is within K1_RTOL * (|b| + floor)."""
@@ -2382,6 +2436,443 @@ def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
                     torch, lambda: step(state, batch, gen)))
 
 
+# ----------------------------------------- serving from weights, evaluation
+
+# Path o: a flip-TTA v1b request runs the dense stage twice (K3-f32 2 x 36)
+# and one solve (K1: the RSLM proposals, then the refine of both branches'
+# points at (1536, 256)); the Monte Carlo scoring of its problem runs the
+# proposals (K1) and the main solve with its JtJ (K1 in a training mode).
+TTA_LAUNCHES = {'K3-f32': 72, 'K1': 2}
+MC_SCORE_LAUNCHES = {'K1': 1, 'K1-train': 1}
+ORIENT_BINS = 128
+# Path p: 96 crops in batches of 32; K1 launches a batch by init.
+EVAL_CROPS, EVAL_BATCH = 96, 32
+EVAL_K1_PER_BATCH = {'epnp_device': 1, 'rslm': 2}
+
+
+def pack_msgpack(obj, out: bytearray):
+    """Append ``obj`` to ``out`` in the msgpack subset that
+    ``flax.serialization.to_bytes`` writes: maps with str keys, str, bin,
+    lists, bools, ints, floats, and numpy arrays as ext type 1 holding
+    ``(shape, dtype name, C-order bytes)``. (A writer for the smoke run
+    alone: the port reads such files, ``utils.checkpoint``.)"""
+    import struct
+    if isinstance(obj, dict):
+        out += struct.pack('>BI', 0xdf, len(obj))
+        for k, v in obj.items():
+            pack_msgpack(str(k), out)
+            pack_msgpack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        out += struct.pack('>BI', 0xdb, len(b)) + b
+    elif isinstance(obj, bytes):
+        out += struct.pack('>BI', 0xc6, len(obj)) + obj
+    elif isinstance(obj, (list, tuple)):
+        out += struct.pack('>BI', 0xdd, len(obj))
+        for v in obj:
+            pack_msgpack(v, out)
+    elif isinstance(obj, (bool, np.bool_)):
+        out += b'\xc3' if obj else b'\xc2'
+    elif isinstance(obj, int):
+        out += struct.pack('>Bq', 0xd3, obj)
+    elif isinstance(obj, float):
+        out += struct.pack('>Bd', 0xcb, obj)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        a = np.ascontiguousarray(obj)
+        body = bytearray()
+        pack_msgpack([[int(d) for d in a.shape], a.dtype.name, a.tobytes()],
+                     body)
+        out += struct.pack('>BIb', 0xc9, len(body), 1) + body
+    else:
+        raise TypeError(f'pack_msgpack: {type(obj).__name__}')
+
+
+def same_results(a, b) -> bool:
+    """Two ``results_to_numpy`` per-image, per-class lists equal bit for
+    bit (NaN where NaN)."""
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(
+            u.shape == v.shape and np.array_equal(u, v, equal_nan=True)
+            for u, v in zip(x, y)) for x, y in zip(a, b))
+
+
+def results_gap(a, b) -> float:
+    """The largest |a - b| over two ``results_to_numpy`` lists of the same
+    layout (inf where their shapes differ)."""
+    gap = 0.0
+    for x, y in zip(a, b):
+        for u, v in zip(x, y):
+            if u.shape != v.shape:
+                return float('inf')
+            if u.size:
+                gap = max(gap, float(np.nanmax(np.abs(u - v))))
+    return gap
+
+
+def same_state(torch, model, sd) -> bool:
+    """``model``'s parameters and BatchNorm statistics equal ``sd``'s bit
+    for bit (``num_batches_tracked``, a counter that flax does not keep
+    and eval mode does not read, apart)."""
+    got = model.state_dict()
+    keys = {k for k in sd if not k.endswith('num_batches_tracked')}
+    differ = sorted(k for k in keys
+                    if k not in got or not torch.equal(got[k].cpu(), sd[k]))
+    if differ:
+        print(f'state differs at {len(differ)} entries, e.g. {differ[:5]}')
+    return not differ and keys <= set(got)
+
+
+def path_det_checkpoint_tta(torch, device, num_requests=3):
+    """Path o: Det serving from a checkpoint with flip TTA at v1b width.
+
+    Phase g's seeded weights are written as an mmdet-named ``.pth`` and,
+    through ``utils.convert.det_variables`` and :func:`pack_msgpack`, as a
+    flax msgpack file; each is loaded by ``det.api.init_detector``. Phase
+    g's request 1 through the msgpack model must equal phase g's model's
+    bit for bit; through the ``.pth`` model (which ``init_detector`` builds
+    at mmcv's modulation scale 1.0, the file having ``conv_offset`` keys),
+    it must equal phase g's model with that scale. Then 3 TTA requests of
+    6 frames (each K3 72 times, K1 twice), a profile by kind, a 320x800 TTA
+    request card against CPU twins, and the Monte Carlo scoring with the
+    yaw density on the last request's problem."""
+    import tempfile
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det import test as dtest
+    from epropnp_tpu_torch.ops.deform_conv import DeformConv
+    from epropnp_tpu_torch.utils.convert import det_variables
+    t0 = time.perf_counter()
+    cfg, model = build_det_model(torch, device, seed=0)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    imgs, ks = det_frames(101)  # phase g's request 1
+
+    def plain(m):
+        infer = dtest.make_inference_fn(m, cfg, min_fcos_score=0.0)
+        return api.inference_detector(
+            m, cfg, imgs, ks, infer_fn=infer,
+            rng=torch.Generator().manual_seed(1))[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'epropnp_det_v1b.pth')
+        torch.save({'meta': {}, 'state_dict': sd}, pth)
+        mp = os.path.join(tmp, 'epropnp_det_v1b.msgpack')
+        buf = bytearray()
+        pack_msgpack(det_variables({k: v.numpy() for k, v in sd.items()},
+                                   cfg), buf)
+        with open(mp, 'wb') as f:
+            f.write(buf)
+        sizes = (os.path.getsize(pth), os.path.getsize(mp))
+        t1 = time.perf_counter()
+        model_mp = api.init_detector(cfg, checkpoint=mp, device=device)
+        t2 = time.perf_counter()
+        model_pth = api.init_detector(cfg, checkpoint=pth, device=device)
+        t3 = time.perf_counter()
+    print(f'path o: checkpoints written ({sizes[0] / 2 ** 20:.1f} MiB .pth, '
+          f'{sizes[1] / 2 ** 20:.1f} MiB msgpack); loaded in '
+          f'{t2 - t1:.2f} s (msgpack) and {t3 - t2:.2f} s (.pth); setup '
+          f'{t3 - t0:.1f} s')
+    assert same_state(torch, model_mp, sd), 'msgpack: weights differ'
+    assert same_state(torch, model_pth, sd), '.pth: weights differ'
+    scales = {m.modulation_scale for m in model_pth.modules()
+              if isinstance(m, DeformConv)}
+    assert scales == {1.0}, f'.pth model: modulation scales {scales}'
+    ref, got_mp = plain(model), plain(model_mp)
+    repeat = plain(model)
+    for mod in model.modules():
+        if isinstance(mod, DeformConv):
+            mod.modulation_scale = 1.0
+    ref1, got_pth = plain(model), plain(model_pth)
+    bit_mp, bit_pth = same_results(got_mp, ref), same_results(got_pth, ref1)
+    print(f'path o: phase g request 1 from the msgpack checkpoint bit for '
+          f'bit: {bit_mp} (max gap {results_gap(got_mp, ref):.3e}); from the '
+          f'.pth (scale 1.0) against phase g\'s model at scale 1.0: '
+          f'{bit_pth} (max gap {results_gap(got_pth, ref1):.3e}); phase g\'s '
+          f'model repeated: {same_results(repeat, ref)}')
+    assert bit_mp and bit_pth, 'checkpoint round trip: results differ'
+    del model, model_pth
+
+    infer = dtest.make_tta_inference_fn(model_mp, cfg, min_fcos_score=0.0)
+    captured = {}
+    problem_fn, pnp_fn = infer.pnp_problem, infer.pnp
+
+    def record_problem(*a, **k):
+        captured['problem'] = problem_fn(*a, **k)
+        return captured['problem']
+
+    def record_pnp(*a, **k):
+        out = pnp_fn(*a, **k)
+        captured['pose'] = out[0]
+        return out
+
+    infer.pnp_problem, infer.pnp = record_problem, record_pnp
+    lat = []
+    for req in range(num_requests + 1):  # request 0 warms up
+        imgs, ks = det_frames(100 + req)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        _, out3d = api.inference_detector(
+            model_mp, cfg, imgs, ks, infer_fn=infer, tta=True,
+            rng=torch.Generator().manual_seed(req))
+        dt = time.perf_counter() - t0
+        after = launch_counts()
+        counts = {k: after[k] - before[k] for k in after
+                  if after[k] != before[k]}
+        live = np.concatenate([a for im in out3d for a in im], 0)
+        print(f'path o: TTA request {req}{" (warm-up)" if not req else ""}: '
+              f'6 frames, latency {dt * 1e3:.3f} ms, launches '
+              f'{json.dumps(counts)}, live objects {len(live)}, '
+              f'finite={bool(np.isfinite(live).all())}')
+        assert counts == TTA_LAUNCHES, f'TTA request: launches {counts}'
+        assert np.isfinite(live).all(), 'non-finite live box'
+        if req:
+            lat.append(dt)
+    print('path o: latency per 6-frame TTA request (ms): '
+          + json.dumps([round(v * 1e3, 3) for v in lat]))
+    # the same request with the RSLM samples drawn on the card (above, as
+    # in phase g, a CPU generator draws them on the host)
+    on_card = []
+    for req in (1, 2):
+        imgs, ks = det_frames(100 + req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.inference_detector(
+            model_mp, cfg, imgs, ks, infer_fn=infer, tta=True,
+            rng=torch.Generator(device).manual_seed(req))
+        on_card.append(round((time.perf_counter() - t0) * 1e3, 3))
+    print('path o: TTA requests 1-2 with a generator on the card (ms): '
+          + json.dumps(on_card))
+    kernels, wall = profile_once(torch, lambda: api.inference_detector(
+        model_mp, cfg, imgs, ks, infer_fn=infer, tta=True,
+        rng=torch.Generator().manual_seed(0)), 'det tta serving', top=12)
+    if kernels:
+        share = lambda *keys: sum(  # noqa: E731
+            k[1] for k in kernels if any(s in k[0].lower() for s in keys))
+        busy = sum(k[1] for k in kernels)
+        print('path o: TTA request by kind: ' + json.dumps(dict(
+            wall_ms=wall, device_busy_ms=busy,
+            device_idle_share=max(0.0, 1.0 - busy / wall),
+            k3_ms=share('dcn_forward'),
+            cudnn_conv_ms=share('cudnn', 'conv', 'fprop', 'implicit_gemm'),
+            k1_ms=share('lm_solve'))))
+
+    x3d, x2d, w2d, camera, cost_fun = captured['problem'][2:]
+    score_3d = captured['problem'][1][1]
+    pose_opt = captured['pose']
+    print(f'path o: TTA problem: {tuple(x3d.shape[:2])} objects x points')
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = dtest.mc_score_and_orient_density(
+        cfg, x3d, x2d, w2d, camera, cost_fun, pose_opt,
+        rng=torch.Generator(device).manual_seed(0), mc_scoring_ratio=0.5,
+        orient_bins=ORIENT_BINS, score_3d=score_3d)
+    ol = out['orient_logprob'].cpu().numpy()
+    dt = time.perf_counter() - t0
+    after = launch_counts()
+    counts = {k: after[k] - before[k] for k in after
+              if after[k] != before[k]}
+    ok = np.isfinite(pose_opt.cpu().numpy()).all(-1)
+    integral = np.exp(ol[ok]).sum(1) * (2 * np.pi / ORIENT_BINS)
+    score = out['score_3d'].cpu().numpy()
+    print('path o: Monte Carlo scoring and yaw density: ' + json.dumps(dict(
+        ms=dt * 1e3, launches=counts, objects=int(len(ol)),
+        finite_poses=int(ok.sum()),
+        density_finite=bool(np.isfinite(ol[ok]).all()),
+        integral_min=float(integral.min()),
+        integral_max=float(integral.max()),
+        score_3d_range=[float(np.nanmin(score)), float(np.nanmax(score))])))
+    assert counts == MC_SCORE_LAUNCHES, f'MC scoring: launches {counts}'
+    assert ok.mean() >= 0.99 and np.isfinite(ol[ok]).all(), \
+        'yaw density: non-finite'
+    np.testing.assert_allclose(integral, 1.0, rtol=1e-3,
+                               err_msg='yaw density does not integrate to 1')
+    assert np.isfinite(score[ok]).all() and (score[ok] >= 0).all() and (
+        score[ok] <= 1).all(), 'MC score_3d outside [0, 1]'
+    profile_once(torch, lambda: dtest.mc_score_and_orient_density(
+        cfg, x3d, x2d, w2d, camera, cost_fun, pose_opt,
+        rng=torch.Generator(device).manual_seed(0), mc_scoring_ratio=0.5,
+        orient_bins=ORIENT_BINS, score_3d=score_3d), 'mc scoring', top=8)
+
+    rel, rel64, pose_close, pose_agree = uncounted(
+        lambda: reduced_size_agreement(torch, model_mp, cfg, tta=True))
+    print(f'path o: 320x800 TTA card vs CPU twins: dense max rel err '
+          f'{rel:.3e} (rule {DET_DENSE_REL:g}; CPU f32 vs f64 {rel64:.3e}), '
+          f'poses within 1e-3 {pose_close:.4f}, or of equal cost '
+          f'{pose_agree:.4f}')
+    assert rel <= DET_DENSE_REL, 'TTA dense outputs: card and CPU disagree'
+    assert pose_agree >= 0.99, 'TTA poses: card and CPU twins disagree'
+    return lat
+
+
+class SyntheticCrops:
+    """``n`` seeded LineMOD-like test crops (``sixdof.dataset.Sample``):
+    normal-distributed 256x256 inputs, a random rotation, a translation
+    0.6-1.2 m ahead, a 60-140 px box around the projected centre; three
+    classes with their model points and diameters."""
+    classes = ['ape', 'cat', 'driller']
+
+    def __init__(self, n, inp_res=256, out_res=64, seed=0):
+        from epropnp_tpu_torch.sixdof.dataset import Sample
+        r = np.random.default_rng(seed)
+        k = np.array(LINEMOD_K)
+        self.extents = {c: r.uniform(0.03, 0.1, 3).astype(np.float32)
+                        for c in self.classes}
+        self.models = {c: r.uniform(-e, e, (500, 3))
+                       for c, e in self.extents.items()}
+        self.diameters = {c: float(2 * np.linalg.norm(e))
+                          for c, e in self.extents.items()}
+        self.samples = []
+        for i in range(n):
+            q = r.normal(size=4)
+            q /= np.linalg.norm(q)
+            w, x, y, z = q
+            rot = np.array([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                 2 * (x * z + w * y)],
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                 2 * (y * z - w * x)],
+                [2 * (x * z - w * y), 2 * (y * z + w * x),
+                 1 - 2 * (x * x + y * y)]])
+            t = np.array([r.uniform(-0.1, 0.1), r.uniform(-0.1, 0.1),
+                          r.uniform(0.6, 1.2)])
+            c = (k @ t)[:2] / t[2]
+            wh = r.uniform(60, 140, 2)
+            self.samples.append(Sample(
+                obj=self.classes[i % 3], obj_id=1 + i % 3,
+                inp=r.normal(size=(inp_res, inp_res, 3)).astype(np.float32),
+                target_coor=np.zeros((out_res, out_res, 3), np.float32),
+                mask=np.ones((out_res, out_res), np.float32),
+                loss_msk=np.ones((out_res, out_res, 3), np.float32),
+                trans_local=np.zeros(3, np.float32),
+                pose=np.concatenate([rot, t[:, None]], 1).astype(np.float32),
+                c_box=c.astype(np.float32), s_box=float(wh.max() * 1.5),
+                box=np.array([c[0] - wh[0] / 2, c[1] - wh[1] / 2, wh[0],
+                              wh[1]], np.float32)))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def min_extents(self, cls):
+        return self.extents[cls]
+
+
+def sixdof_eval_setup(torch, device, setup):
+    """Path p's data and checkpoint, made once into ``setup``: a full-width
+    CDPN-34 on seeded weights (BatchNorm calibrated on one seeded batch)
+    written with ``utils.checkpoint.save_checkpoint`` into a temporary
+    directory, and :class:`SyntheticCrops`."""
+    if setup:
+        return setup
+    import tempfile
+    from epropnp_tpu_torch.models.cdpn import CDPN
+    from epropnp_tpu_torch.sixdof import train as train_lib
+    from epropnp_tpu_torch.sixdof.config import (
+        DataIterConfig, PnPConfig, SixDoFConfig)
+    from epropnp_tpu_torch.utils.checkpoint import save_checkpoint
+    cfg = SixDoFConfig(dataiter=DataIterConfig(inp_res=256, out_res=64),
+                       pnp=PnPConfig(use_pallas=True))
+    torch.manual_seed(1)
+    model = CDPN(depth=34, feat_hw=(8, 8)).to(device)
+    r = np.random.default_rng(1)
+    calibrate_batchnorm(torch, model, torch.tensor(
+        r.normal(size=(EVAL_BATCH, 256, 256, 3)), dtype=torch.float32,
+        device=device))
+    setup['tmp'] = tempfile.TemporaryDirectory()
+    setup['path'] = save_checkpoint(
+        os.path.join(setup['tmp'].name, 'cdpn34.pt'),
+        train_lib.TrainState(model, train_lib.make_optimizer(cfg, model, 1)))
+    setup['state_dict'] = {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()}
+    setup['cfg'] = cfg
+    t0 = time.perf_counter()
+    setup['data'] = SyntheticCrops(EVAL_CROPS)
+    print(f'path p: {EVAL_CROPS} synthetic crops made in '
+          f'{time.perf_counter() - t0:.1f} s; checkpoint '
+          f'{os.path.getsize(setup["path"]) / 2 ** 20:.1f} MiB')
+    return setup
+
+
+def path_sixdof_eval(torch, device, init, setup):
+    """Path p: ``sixdof.main.test_loop`` on the checkpoint of
+    :func:`sixdof_eval_setup` over 96 crops in batches of 32 with ``init``;
+    each batch must launch K1 ``EVAL_K1_PER_BATCH[init]`` times and nothing
+    else. Prints each batch's wall and ``PoseEvaluator``'s metrics."""
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof import test as stest
+    from epropnp_tpu_torch.sixdof.main import load_cdpn
+    s = sixdof_eval_setup(torch, device, setup)
+    ds = s['data']
+    if init == 'epnp_device':
+        loaded = load_cdpn(s['cfg'], s['path'], device=device)
+        assert same_state(torch, loaded, s['state_dict']), \
+            'CDPN checkpoint: weights differ'
+        del loaded
+        print("path p: init='epnp' (cv2.solvePnP on the host) is not driven "
+              'here: this machine has no cv2')
+    # each batch's wall runs from the end of the previous batch's
+    # ``infer_poses`` (from the call of ``test_loop`` for the first batch,
+    # which loads the checkpoint) to the end of its own, and its launches
+    # are the counts' growth over that span
+    batches = []
+    last = [launch_counts(), time.perf_counter()]
+    infer_poses = stest.infer_poses
+
+    def timed_infer_poses(*args, **kwargs):
+        res = infer_poses(*args, **kwargs)
+        torch.cuda.synchronize()
+        now, t = launch_counts(), time.perf_counter()
+        batches.append(dict(
+            crops=int(res.pose_est.shape[0]), wall_ms=(t - last[1]) * 1e3,
+            launches={k: now[k] - last[0][k] for k in now
+                      if now[k] != last[0][k]},
+            finite=bool(torch.isfinite(res.pose_est).all())))
+        last[:] = [now, t]
+        return res
+
+    # the RSLM draws from a generator on the card, as a caller on the card
+    # would (a CPU generator draws them on the host, PERF.md)
+    stest.infer_poses = timed_infer_poses
+    try:
+        metrics = smain.test_loop(s['cfg'], ds, s['path'], ds.models,
+                                  ds.diameters, init=init,
+                                  batch_size=EVAL_BATCH, device=device,
+                                  rng=torch.Generator(device).manual_seed(0))
+    finally:
+        stest.infer_poses = infer_poses
+    for i, b in enumerate(batches):
+        print(f'path p ({init}): batch {i}: ' + json.dumps(b))
+    print(f'path p ({init}): metrics ' + json.dumps(
+        metrics, default=lambda a: np.asarray(a).tolist()))
+    # the first batch's model outputs on the card through infer_poses on
+    # the card and on the CPU (the twins), the same draws: phase c's rule
+    from epropnp_tpu_torch.sixdof.dataset import collate
+    model = load_cdpn(s['cfg'], s['path'], device=device)
+    samples = ds.samples[:EVAL_BATCH]
+    batch = collate(samples, {c: ds.min_extents(c) for c in ds.classes},
+                    device)
+    share = uncounted(lambda: twin_path_agreement(
+        torch, model, batch, np.stack([x.box[2:] for x in samples]),
+        torch.tensor(LINEMOD_K, device=device), s['cfg'], seed=0,
+        init=init))
+    print(f'path p ({init}): share of the first batch\'s {EVAL_BATCH} crops '
+          f'whose pose on the card matches the CPU twins: {share:.4f}')
+    assert share >= 0.9, f'{init}: card and CPU twins disagree'
+    assert len(batches) == EVAL_CROPS // EVAL_BATCH, 'test_loop: batches'
+    want = {'K1': EVAL_K1_PER_BATCH[init]}
+    for b in batches:
+        assert b['launches'] == want, f'{init} batch: launches {b}'
+        assert b['finite'], f'{init} batch: non-finite pose'
+    assert set(metrics) == {'pose', 'add', 'arp_2d'}
+    assert all(np.isfinite(np.asarray(v, np.float64)).all()
+               for m in metrics.values() for per_cls in m.values()
+               for v in per_cls.values()), \
+        'non-finite metric'
+    return [b['wall_ms'] for b in batches]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', default=None,
@@ -2463,7 +2954,13 @@ def main(argv=None) -> int:
              ('h bf16 gather', lambda: phase_h_bf16(torch, device)),
              ('j', lambda: path_train(torch, device, TRAIN_STEPS)),
              ('k', lambda: path_fit_identity(torch, device)),
-             ('n', lambda: path_det_train(torch, device)))
+             ('n', lambda: path_det_train(torch, device)),
+             ('o', lambda: path_det_checkpoint_tta(torch, device)),
+             ('p epnp_device', lambda: path_sixdof_eval(
+                 torch, device, 'epnp_device', eval_setup)),
+             ('p rslm', lambda: path_sixdof_eval(torch, device, 'rslm',
+                                                 eval_setup)))
+    eval_setup = {}
     totals = dict.fromkeys(kernel_counters(), 0)
     results = {}
     for name, fn in paths:
@@ -2497,6 +2994,8 @@ def main(argv=None) -> int:
                 print(f'path n: launches {counts}, expected {expected}',
                       file=sys.stderr)
                 failed.append('n: Det training launches')
+    if 'tmp' in eval_setup:
+        eval_setup['tmp'].cleanup()
     for name in ('j', 'n'):
         if name in results:
             t0 = time.perf_counter()

@@ -2,7 +2,8 @@
 half of ``epropnp_tpu/det/main.py``: build the detector, the optimizer and
 the train step, iterate batches, checkpoint per epoch (and resume), and
 the class-balanced sampler ``CBGSWrapper``. One device; it is the CUDA
-card unless the caller passes another.
+card unless the caller passes another. Training may start from a torch
+checkpoint (``load_torch``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import get_logger
 from . import train as dtrain
-from .api import build_detector
+from .api import build_detector, load_torch_weights
 from .config import DetConfig
 
 
@@ -77,7 +78,8 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
                save_dir: str, resume_from: Optional[str] = None,
                log_interval: int = 50, seed: int = 0,
                ckpt_interval: int = 1, eval_fn=None, eval_interval: int = 1,
-               device=None, on_step: Optional[Callable] = None):
+               device=None, on_step: Optional[Callable] = None,
+               load_torch: Optional[str] = None):
     """``batch_iter_factory(epoch)`` -> an iterator of ``DetBatch`` records
     (numpy arrays or tensors), ``cfg.train.epochs`` epochs.
 
@@ -86,12 +88,19 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
     whole state. ``eval_fn(state, epoch) -> dict`` runs every
     ``eval_interval`` epochs after the checkpoint, and its scalar metrics
     are logged. ``on_step(epoch, i, metrics)``, when given, is called after
-    every step with the step's metrics (tensors on the device). Returns the
-    state.
+    every step with the step's metrics (tensors on the device).
+    ``load_torch`` grafts a torch checkpoint (a torchvision ImageNet
+    backbone, an mmdet backbone and neck, or a full EProPnPDet file;
+    ``api.load_torch_weights``) onto the fresh weights before training, as
+    the reference starts from ``init_cfg=Pretrained torchvision://resnet101``
+    (configs/epropnp_det_basic.py:18). Returns the state.
     """
     device = _device(device)
     logger = get_logger('epropnp_tpu_torch.det', save_dir)
     model, step_fn = build_all(cfg, device, seed)
+    if load_torch:
+        load_torch_weights(model, cfg, load_torch)
+        logger.info('grafted torch weights from %s', load_torch)
     state = init_state(cfg, model, steps_per_epoch)
     if resume_from:
         load_checkpoint(resume_from, state)

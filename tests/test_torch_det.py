@@ -462,8 +462,9 @@ def test_det_state_dict_round_trips_at_v1b_with_dcn_bias():
 
 def test_api_refuses_what_is_not_ported():
     """Built with every serving option of ``v1b_serving`` mapped (no
-    option refused); what stays unported is refused: flip TTA, checkpoint
-    loading, and the int8 DCN (forward only) under autograd."""
+    option refused); what stays unported is refused: the int8 DCN
+    (forward only) under autograd. (Checkpoint loading and flip TTA are
+    ported: ``tests/test_torch_det_serving.py`` holds them against JAX.)"""
     _, tcfg = _cfgs()
     serving = dataclasses.replace(
         tcfg, bf16_backbone=True, bf16_dense=True, int8_dcn_gather=True,
@@ -476,10 +477,6 @@ def test_api_refuses_what_is_not_ported():
     assert model.bbox_head.dense_dtype == torch.bfloat16
     assert det.cls_convs[-1].conv.int8_gather
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match='checkpoint'):
-        tapi.init_detector(tcfg, checkpoint='model.pth', device='cpu')
-    with pytest.raises(NotImplementedError, match='TTA'):
-        tapi.inference_detector(None, tcfg, [], [], tta=True)
     with pytest.raises(NotImplementedError, match='forward only'):
         model.det_dense(torch.zeros(1, H, W, 3), (H, W))
 

@@ -514,3 +514,30 @@ def test_train_loop_checkpoints_resumes_and_evaluates(tmp_path):
     assert int(resumed.step) == 3
     with pytest.raises(NotImplementedError, match='not ported'):
         tmain.build_all(dataclasses.replace(cfg, remat_dense=True), 'cpu')
+
+
+def test_train_loop_grafts_a_torch_checkpoint(tmp_path):
+    """``train_loop(load_torch=...)``: a full mmdet-named checkpoint
+    (``state_dict`` wrapper) is grafted onto the fresh weights before the
+    first step, as JAX's ``train_loop`` grafts it; with no step to take the
+    trained state holds the file's weights bit for bit. A file with mmcv
+    DCN offsets into a model at modulation scale 2.0 raises JAX's guard."""
+    cfg = dataclasses.replace(tiny_cfg(tconfig), dcn_modulation_scale=1.0,
+                              train=dataclasses.replace(
+                                  tiny_cfg(tconfig).train, epochs=1))
+    torch.manual_seed(3)
+    sd = tapi.build_detector(cfg).state_dict()
+    path = str(tmp_path / 'det.pth')
+    torch.save({'state_dict': sd}, path)
+    state = tmain.train_loop(cfg, lambda epoch: iter([]), 1,
+                             str(tmp_path / 'run'), device='cpu',
+                             load_torch=path)
+    got = state.model.state_dict()
+    assert set(got) == set(sd)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    assert tapi.torch_checkpoint_has_dcn_offsets(path)
+    with pytest.raises(ValueError, match='dcn_modulation_scale=1.0'):
+        tmain.train_loop(dataclasses.replace(cfg, dcn_modulation_scale=2.0),
+                         lambda epoch: iter([]), 1, str(tmp_path / 'bad'),
+                         device='cpu', load_torch=path)

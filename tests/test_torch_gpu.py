@@ -120,10 +120,13 @@ def test_solver_on_card_goes_through_both_kernels(cuda_device):
 
 @pytest.mark.parametrize('b,n,num_iter', [
     (4096, 16, 3), (256, 128, 5),
-    (9000, 15, 3), (5001, 17, 3), (3001, 128, 3), (33, 4096, 3)])
+    (9000, 15, 3), (5001, 17, 3), (3001, 128, 3), (33, 4096, 3),
+    # the flip-TTA refine (both branches' points) and a ragged neighbour
+    (1536, 256, 5), (1535, 257, 5)])
 def test_lm_kernel_dof4_bounds_matches_twin(cuda_device, b, n, num_iter):
     """K1 at dof 4 with projection bounds in fast mode (the Det serving
-    solve), as chip_smoke.py phase f holds it: the principal points are
+    solve, and at (1536, 256) the flip-TTA refine), as chip_smoke.py phase
+    f holds it: the principal points are
     shifted per object so that part of the projections lands outside the
     1600x672 box and is clamped; fast-mode steps keep the Jacobian rows of
     clamped points, so f32 rounding decides a few objects. 99% of the
@@ -154,6 +157,45 @@ def test_lm_kernel_dof4_bounds_matches_twin(cuda_device, b, n, num_iter):
     frac = lambda a, b_: torch.isclose(  # noqa: E731
         a.double(), b_.double(), rtol=1e-4, atol=0).float().mean()
     assert frac(ck, ct) >= 0.99 or frac(ck, c64) >= frac(ct, c64) - 0.005
+
+
+@pytest.mark.parametrize('b,n', [(1536, 256), (300, 33)])
+def test_lm_kernel_fast_jtj_matches_twin(cuda_device, b, n):
+    """K1 in fast mode at dof 4 with bounds and the JtJ output: the solve
+    of the Det Monte Carlo scoring (``det.test.mc_score_and_orient_density``
+    on a flip-TTA problem), counted in ``launches_train``. The cost rule of
+    test_lm_kernel_dof4_bounds_matches_twin; where the poses agree, 99% of
+    the objects have max|dJtJ| <= 1e-4 max|JtJ|."""
+    p = make_pnp_problem(b, n, 8, dof=4, init_noise=(0.05, 0.1),
+                         focal=(1266.0, 1266.0), depth=(4.0, 20.0))
+    shift = np.random.default_rng(9).uniform([-150., -150.], [1750., 820.],
+                                             (b, 2))
+    p['x2d'] = p['x2d'] + shift[:, None]
+    p['cams'][:, :2, 2] += shift
+    x3d, x2d, w2d, cams, pose0 = (
+        torch.tensor(p[k], dtype=torch.float32, device=cuda_device)
+        for k in ('x3d', 'x2d', 'w2d', 'cams', 'pose0'))
+    bounds = torch.tensor([[-200.5, -200.5, 1799.5, 871.5]] * b,
+                          device=cuda_device)
+    args = (x3d, x2d, w2d, lm_kernel.camera_to_fxfycxcy(cams).contiguous(),
+            torch.full((b,), 10.0 / n, device=cuda_device), pose0)
+    kw = dict(bounds=bounds, dof=4, num_iter=5, fast_mode=True,
+              with_jtj=True)
+    before = lm_kernel.launches_train
+    out_k = lm_kernel.lm_solve(*args, **kw)
+    assert lm_kernel.launches_train == before + 1
+    out_t = lm_kernel.lm_solve_reference(*args, **kw)
+    _, c64, _ = lm_kernel.lm_solve_reference(
+        *(a.double() for a in args), **dict(kw, bounds=bounds.double()))
+    frac = lambda a, b_: torch.isclose(  # noqa: E731
+        a.double(), b_.double(), rtol=1e-4, atol=0).float().mean()
+    assert frac(out_k[1], out_t[1]) >= 0.99 or frac(out_k[1], c64) >= frac(
+        out_t[1], c64) - 0.005
+    same = ((out_k[0] - out_t[0]).abs() <= 1e-4 * (out_t[0].abs() + 1e-2)
+            ).all(-1) & torch.isfinite(out_t[2]).all(-1).all(-1)
+    scale = out_t[2].abs().amax((1, 2))
+    ok = (out_k[2] - out_t[2]).abs().amax((1, 2)) <= 1e-4 * scale
+    assert ok[same].float().mean() >= 0.99
 
 
 @pytest.mark.parametrize('n,h,w,c,cout,stride', [

@@ -330,9 +330,17 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.sixdof.main, '
             'epropnp_tpu_torch.demo.fit_identity, '
             'epropnp_tpu_torch.ops.rotation_conversions, '
-            'epropnp_tpu_torch.det.main, epropnp_tpu_torch.utils.optim; '
+            'epropnp_tpu_torch.det.main, epropnp_tpu_torch.utils.optim, '
+            'epropnp_tpu_torch.sixdof.eval_metrics, '
+            'epropnp_tpu_torch.sixdof.dataset, '
+            'epropnp_tpu_torch.sixdof.model_points, '
+            'epropnp_tpu_torch.utils.checkpoint, '
+            'epropnp_tpu_torch.visualization.orient_density; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
+            'assert "flax" not in sys.modules and "msgpack" not in '
+            'sys.modules; '
+            'assert "cv2" not in sys.modules, "cv2 imported at module level"; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, timeout=120, check=False, cwd=REPO_ROOT)
