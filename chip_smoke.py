@@ -110,10 +110,30 @@ p. 6DoF evaluation: ``sixdof.main.test_loop`` on a full-width CDPN-34
    (phase c's rule).
    ``init='epnp'`` (host ``cv2.solvePnP``) is not driven: the GPU machine
    has no cv2.
+q. Det on a dataset: a nuScenes-format tree written from a seed under
+   ``build/`` (``write_det_tree``: 4 train and 2 val keyframes of six
+   1600x900 frames rendered by ``det.synthetic``, uint8 ``.npy``, the
+   converter's info pickles with objects of all ten classes). Training:
+   ``tools.train_det.make_batch_iter`` on ``NuScenes3DDataset`` (the sky
+   crop, training flips) into ``det.main.train_loop`` at
+   ``DetConfig.v1b()``, batch 6, 4 steps of which the last 2 are timed,
+   each launching K2 with bounds twice, K3-f32 36 times and K1 twice in
+   its training modes and nothing else; per step the wall, images/s and
+   the host's pipeline + collate time. Evaluation: ``init_detector`` on
+   the run's ``latest.pt`` (the trained weights bit for bit), then
+   ``tools.test_det.evaluate_dataset`` over the 12 val frames in batches
+   of 6 with the RSLM samples drawn on the card, plain (K3 36 times and
+   K1 twice a batch) and with flip TTA (K3 72 times, K1 twice); per batch
+   the read, pipeline and inference times, then the fusion + eval time,
+   the metrics (finite NDS, mAP and TP errors) and the 2 sample tokens of
+   ``results_nusc.json``. Then the val ground truth as detections through
+   ``NuScenes3DDataset.evaluate`` (mAP at least 0.95) and ``kitti_eval``
+   on the same boxes through the native ``ops.iou3d`` (every AP 100).
 
 Every launch counter is set to 0 just before each path that a user's
-call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k, n, o
-and p with each init) and read just after it. In every path the same
+call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k, n, o,
+p with each init, and q's training, each of its evaluations and its
+metrics check) and read just after it. In every path the same
 convention holds: the launches of a check of the card against the CPU
 twins made inside the path (c, d, g, h, o, p) are taken back out of its
 counts (``uncounted``), while a profiled repeat of the path's own call
@@ -128,7 +148,8 @@ blocks an SM at the main path's shapes, and each K1/K2 row its bound's
 share of its time (``bound_share``).
 
 ``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
-i, l, m), not the main run, and prints no ``ok`` line. ``--only
+i, l, m), not the main run (paths c, d, g, h, j, k, n, o, p and q), and
+prints no ``ok`` line. ``--only
 a-groups`` times K1 over its group sizes at the main path's shapes (the
 measurement behind ``lm_kernel.group_size``); it is not part of the full
 run.
@@ -140,6 +161,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1438,7 +1460,8 @@ def serving_reduced_size(torch, model, cfg, model32, cfg32, seed=7):
     from epropnp_tpu_torch.det.pipelines import default_pipeline
     device = next(model.parameters()).device
     imgs, ks = det_frames(seed, num=1, h=320, w=800)
-    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]))
+    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]),
+                         training=False)
     flat = lambda d: [a.float().cpu() for o in d[0] for a in o] + [  # noqa: E731,E501
         a.float().cpu() for a in d[1:]]
     outs = []
@@ -1476,6 +1499,7 @@ def time_host_pipeline(imgs, ks):
         REFERENCE_CROP_BOX, default_pipeline)
     t0 = time.perf_counter()
     samples = [default_pipeline(dict(img=img, cam_intrinsic=k),
+                                training=False,
                                 crop_box=REFERENCE_CROP_BOX)
                for img, k in zip(imgs, ks)]
     t1 = time.perf_counter()
@@ -1528,7 +1552,8 @@ def reduced_size_agreement(torch, model, cfg, seed=7, tta=False):
     from epropnp_tpu_torch.ops.pnp import evaluate_pnp
     device = next(model.parameters()).device
     imgs, ks = det_frames(seed, num=1, h=320, w=800)
-    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]))
+    s = default_pipeline(dict(img=imgs[0], cam_intrinsic=ks[0]),
+                         training=False)
     model_cpu = copy.deepcopy(model).cpu()
     make = dtest.make_tta_inference_fn if tta else dtest.make_inference_fn
 
@@ -2873,10 +2898,329 @@ def path_sixdof_eval(torch, device, init, setup):
     return [b['wall_ms'] for b in batches]
 
 
+# ---------------------------------------------- Det on a dataset (path q)
+
+# Path q: a nuScenes-format tree written from a seed (frames of
+# det/synthetic.py at 1600x900 as uint8 .npy, six cameras a keyframe),
+# DATASET_TRAIN_STEPS training steps of 6 frames through the training
+# augmentations (the last DATASET_TRAIN_TIMED timed), then the 12 val
+# frames served in batches of 6, plain and with flip TTA, and scored.
+DATASET_KEYFRAMES = {'train': 4, 'val': 2}
+DATASET_TRAIN_STEPS, DATASET_TRAIN_TIMED, DATASET_BATCH = 4, 2, 6
+DATASET_EVAL_LAUNCHES = {False: {'K3-f32': 36, 'K1': 2}, True: TTA_LAUNCHES}
+# the val ground truth fed back as detections must score mAP >= this
+GT_MAP_FLOOR = 0.95
+# nuScenes-like camera yaws about the ego's up axis (radians)
+CAM_YAWS = {'CAM_FRONT': 0.0, 'CAM_FRONT_RIGHT': -0.96,
+            'CAM_FRONT_LEFT': 0.96, 'CAM_BACK': np.pi,
+            'CAM_BACK_LEFT': np.pi - 0.96, 'CAM_BACK_RIGHT': 0.96 - np.pi}
+
+
+def write_det_tree(root, seed=0, im_hw=(900, 1600), keyframes=None,
+                   num_obj=(4, 7), focal=1266.4):
+    """A nuScenes-format tree under ``root``: per keyframe six camera
+    frames rendered by ``det.synthetic.SyntheticDetSceneGenerator`` (RGB
+    uint8 ``.npy`` under ``samples/<CAM>/``), and per split an info pickle
+    in the converter's format (``tools/nuscenes_converter.py``): image
+    path, intrinsics, sensor-to-ego and ego-to-global poses, and each
+    object in the camera frame (category, 2D box, translation, size wlh,
+    rotation, velocity, visibility, truncation, attribute, ann_token). The
+    categories cycle through the ten nuScenes classes. Returns
+    ``{split: pickle path}``."""
+    import pickle
+    from epropnp_tpu_torch.det import nuscenes_dataset as nd
+    from epropnp_tpu_torch.det.synthetic import SyntheticDetSceneGenerator
+    keyframes = keyframes or DATASET_KEYFRAMES
+    gen = SyntheticDetSceneGenerator(
+        im_hw=im_hw, num_classes=3, max_gt=num_obj[1], num_obj_range=num_obj,
+        lidar_points=1, focal=focal, depth_range=(6.0, 20.0))
+    r = np.random.default_rng(seed)
+    # camera axes (x right, y down, z ahead) -> ego axes (x ahead, z up)
+    cam_base = nd.quat_multiply(nd.quat_about_axis([0, 0, 1], -np.pi / 2),
+                                nd.quat_about_axis([1, 0, 0], -np.pi / 2))
+    kitti_q = nd.mat_to_quat(nd.KITTI2NUS_ROT.T.astype(np.float64))
+    paths, n_obj = {}, 0
+    for split, n_key in keyframes.items():
+        infos = []
+        for k in range(n_key):
+            token = f'{split}-{k:03d}'
+            e2g_q = nd.quat_about_axis([0, 0, 1], r.uniform(-np.pi, np.pi))
+            e2g_t = [float(r.uniform(-500, 500)),
+                     float(r.uniform(-500, 500)), 0.0]
+            for cam_id, cam in enumerate(nd.CAMS):
+                scene = gen.sample_scene(r)
+                rel = os.path.join('samples', cam, f'{token}.npy')
+                os.makedirs(os.path.join(root, 'samples', cam), exist_ok=True)
+                np.save(os.path.join(root, rel),
+                        np.round(scene.img * 255).astype(np.uint8))
+                anns = []
+                for g in np.flatnonzero(scene.gt_mask):
+                    l, h, w, x, y, z, yaw = (
+                        float(v) for v in scene.gt_bboxes_3d[g])
+                    cat = nd.CLASSES[n_obj % len(nd.CLASSES)]
+                    n_obj += 1
+                    rot = nd.quat_multiply(
+                        nd.quat_about_axis([0, 1, 0], yaw), kitti_q)
+                    anns.append(dict(
+                        category=cat,
+                        bbox=[float(v) for v in scene.gt_bboxes[g]],
+                        translation=[x, y, z], size=[w, l, h],
+                        rotation=[float(v) for v in rot],
+                        velocity=[0.0, 0.0], attribute=nd.CLS2ATTR[cat][0],
+                        visibility=4, truncation=0.0,
+                        ann_token=f'{token}-{cam_id}-{g}', num_pts=1))
+                s2e_q = nd.quat_multiply(
+                    nd.quat_about_axis([0, 0, 1], CAM_YAWS[cam]), cam_base)
+                infos.append(dict(
+                    img_path=rel, cam_id=cam_id, sample_token=token,
+                    cam_intrinsic=gen.cam_k.astype(np.float64).tolist(),
+                    sensor2ego_rotation=[float(v) for v in s2e_q],
+                    sensor2ego_translation=[1.5, 0.0, 1.5],
+                    ego2global_rotation=[float(v) for v in e2g_q],
+                    ego2global_translation=e2g_t, annotations=anns,
+                    version='v1.0-trainval'))
+        paths[split] = os.path.join(root, f'infos_{split}.pkl')
+        with open(paths[split], 'wb') as f:
+            pickle.dump(infos, f)
+    return paths
+
+
+def kitti_annos(dataset):
+    """The frames' annotations as KITTI annos (every object a 'Car', its
+    2D box, dimensions [l, h, w], location, rotation_y and alpha; no
+    occlusion or truncation), and the same boxes as detections of score
+    1."""
+    from epropnp_tpu_torch.tools.test_det import unfiltered
+    full = unfiltered(dataset)
+    gt, dt = [], []
+    for info in dataset.data_infos:
+        ann = full.parse_ann_info(info)
+        b3d, n = ann['bboxes_3d'], len(ann['labels'])
+        anno = dict(name=np.array(['Car'] * n),
+                    bbox=np.asarray(ann['bboxes'], np.float32).reshape(n, 4),
+                    dimensions=b3d[:, :3], location=b3d[:, 3:6],
+                    rotation_y=b3d[:, 6],
+                    alpha=b3d[:, 6] - np.arctan2(b3d[:, 3], b3d[:, 5]),
+                    occluded=np.zeros(n), truncated=np.zeros(n))
+        gt.append(anno)
+        dt.append(dict(anno, score=np.ones(n, np.float32)))
+    return gt, dt
+
+
+def det_dataset_setup(torch, device, setup):
+    """Path q's tree, written once into ``setup`` under ``build/``."""
+    if setup:
+        return setup
+    root = os.path.join(REPO, 'build', 'chip_smoke_det_tree')
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    setup['paths'] = write_det_tree(root)
+    setup['root'] = root
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+    print(f'path q: nuScenes-format tree of '
+          f'{sum(DATASET_KEYFRAMES.values()) * 6} frames of 1600x900 '
+          f'written in {time.perf_counter() - t0:.1f} s '
+          f'({size / 2 ** 20:.1f} MiB)')
+    return setup
+
+
+def dataset_cfg():
+    """``DetConfig.v1b()`` with K1 on the path, one epoch, batch 6."""
+    import dataclasses
+    from epropnp_tpu_torch.det.config import DetConfig
+    base = DetConfig.v1b()
+    return dataclasses.replace(
+        base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
+        train=dataclasses.replace(base.train, epochs=1,
+                                  batch_size=DATASET_BATCH))
+
+
+def path_det_dataset_train(torch, device, setup):
+    """Path q, training: ``tools.train_det.make_batch_iter`` on
+    ``NuScenes3DDataset`` (the reference crop, training flips) into
+    ``det.main.train_loop`` at v1b, batch 6: DATASET_TRAIN_STEPS steps,
+    each launching K2 with bounds twice, K3-f32 36 times and K1 twice in
+    its training modes, and nothing else; per step the wall time,
+    images/s and the host's pipeline + collate time."""
+    from epropnp_tpu_torch.det import main as dmain
+    from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
+    from epropnp_tpu_torch.tools import train_det
+    setup = det_dataset_setup(torch, device, setup)
+    cfg = dataset_cfg()
+    dataset = NuScenes3DDataset(setup['paths']['train'],
+                                img_prefix=setup['root'])
+    steps = train_det.steps_per_epoch(dataset, cfg)
+    assert steps == DATASET_TRAIN_STEPS, f'{steps} steps an epoch'
+    batch_iter = train_det.make_batch_iter(dataset, cfg, setup['root'])
+    host_ms, stamps, per_step, metrics = [], [], [], []
+    last = dict(launch_counts())
+
+    def timed_iter(epoch):
+        it = batch_iter(epoch)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    def on_step(epoch, i, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+        now = launch_counts()
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+
+    save_dir = os.path.join(setup['root'], 'run')
+    t0 = time.perf_counter()
+    state = dmain.train_loop(cfg, timed_iter, steps, save_dir,
+                             log_interval=steps, device=device,
+                             on_step=on_step)
+    total = time.perf_counter() - t0
+    starts = [t0] + stamps[:-1]
+    for i, (m, c) in enumerate(zip(metrics, per_step)):
+        wall = stamps[i] - starts[i]
+        timed = i >= steps - DATASET_TRAIN_TIMED
+        print(f'path q: step {i}{"" if timed else " (warm-up)"}: wall '
+              f'{wall * 1e3:.3f} ms, {DATASET_BATCH / wall:.3f} images/s, '
+              f'host pipeline + collate {host_ms[i]:.3f} ms, '
+              + json.dumps({k: round(v, 6) for k, v in m.items()})
+              + ' launches ' + json.dumps({k: v for k, v in c.items() if v}))
+    warm = steps - DATASET_TRAIN_TIMED
+    ms = (stamps[-1] - stamps[warm - 1]) / DATASET_TRAIN_TIMED * 1e3
+    print('path q: training ' + json.dumps(dict(
+        steps=steps, timed_steps=DATASET_TRAIN_TIMED, ms_per_step=ms,
+        images_per_s=DATASET_BATCH / ms * 1e3,
+        host_pipeline_collate_ms=host_ms,
+        skipped_steps=int(sum(m['skipped'] for m in metrics)),
+        loop_s_with_checkpoint=total)))
+    assert len(metrics) == steps, 'train_loop: wrong number of steps'
+    # a step whose gradient is not finite is skipped by design (JAX's
+    # rule, det.train.make_train_step); its losses must still be finite,
+    # and some step must update the weights that latest.pt then holds
+    assert all(np.isfinite(v) for m in metrics for k, v in m.items()
+               if k != 'grad_norm'), 'path q: a non-finite loss'
+    assert sum(m['skipped'] for m in metrics) < steps, \
+        'path q: every step skipped'
+    for i, c in enumerate(per_step):
+        others = {k: v for k, v in c.items()
+                  if k not in DET_STEP_LAUNCHES and v}
+        assert all(c[k] == v for k, v in DET_STEP_LAUNCHES.items()) \
+            and not others, f'path q: training step {i}: launches {c}'
+    setup['checkpoint'] = os.path.join(save_dir, 'latest.pt')
+    setup['trained'] = {k: v.detach().cpu()
+                        for k, v in state.model.state_dict().items()}
+    return dict(ms=ms, host_ms=host_ms)
+
+
+def path_det_dataset_eval(torch, device, setup, tta):
+    """Path q, evaluation: ``det.api.init_detector`` on the training run's
+    ``latest.pt`` (its weights must equal the trained ones bit for bit),
+    then ``tools.test_det.evaluate_dataset`` over the 12 val frames in
+    batches of 6 with the RSLM samples drawn on the card; each batch must
+    launch K3 36 times (72 with ``tta``) and K1 twice. Per batch the times
+    of reading, the pipeline and the inference; then the fusion + eval
+    time and the metrics, which must be finite, over the 2 sample tokens
+    of ``results_nusc.json``."""
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
+    from epropnp_tpu_torch.tools.test_det import evaluate_dataset
+    from epropnp_tpu_torch.utils.timer import IterTimers
+    label = 'TTA' if tta else 'plain'
+    cfg = dataset_cfg()
+    t0 = time.perf_counter()
+    model = api.init_detector(cfg, checkpoint=setup['checkpoint'],
+                              device=device)
+    print(f'path q: init_detector on latest.pt in '
+          f'{time.perf_counter() - t0:.2f} s')
+    assert same_state(torch, model, setup['trained']), \
+        'latest.pt: the loaded weights differ from the trained ones'
+    dataset = NuScenes3DDataset(setup['paths']['val'],
+                                img_prefix=setup['root'])
+    timers = IterTimers(enabled=True)
+    keys = ('read time', 'data time', 'model time', 'post-proc. time')
+    seen = dict.fromkeys(keys, 0.0)
+    last = dict(launch_counts())
+    per_batch = []
+
+    def on_batch(b):
+        now = launch_counts()
+        counts = {k: now[k] - last[k] for k in now if now[k] != last[k]}
+        last.update(now)
+        times = {}
+        for k in keys:
+            total = timers(k).total
+            times[k] = (total - seen[k]) * 1e3
+            seen[k] = total
+        per_batch.append(counts)
+        print(f'path q: {label} batch {b}: ' + json.dumps(dict(
+            read_ms=times['read time'], pipeline_ms=times['data time'],
+            inference_ms=times['model time'],
+            post_proc_ms=times['post-proc. time'], launches=counts)))
+
+    out_dir = os.path.join(setup['root'], f'eval_{label.lower()}')
+    t0 = time.perf_counter()
+    metrics = evaluate_dataset(
+        model, cfg, dataset, setup['root'], out_dir,
+        batch_size=DATASET_BATCH, tta=tta,
+        rng=torch.Generator(device).manual_seed(0), timers=timers,
+        on_batch=on_batch)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, 'results_nusc.json')) as f:
+        tokens = len(json.load(f)['results'])
+    summary = dict(nd_score=metrics['nd_score'], mean_ap=metrics['mean_ap'],
+                   tp_errors=metrics['tp_errors'], sample_tokens=tokens,
+                   fusion_eval_ms=timers('fusion + eval time').total * 1e3,
+                   wall_s=wall)
+    print(f'path q: {label} evaluation ' + json.dumps(summary))
+    assert len(per_batch) == len(dataset) // DATASET_BATCH
+    for b, counts in enumerate(per_batch):
+        assert counts == DATASET_EVAL_LAUNCHES[tta], \
+            f'{label} batch {b}: launches {counts}'
+    assert tokens == DATASET_KEYFRAMES['val'], f'{tokens} sample tokens'
+    values = [metrics['nd_score'], metrics['mean_ap'],
+              *metrics['tp_errors'].values()]
+    assert np.isfinite(values).all(), f'{label}: a metric is NaN'
+    return summary
+
+
+def path_det_metrics_check(torch, device, setup):
+    """Path q, the metrics code: the val ground truth fed back as
+    detections of score 1 through ``NuScenes3DDataset.evaluate`` (mAP at
+    least GT_MAP_FLOOR), and ``kitti_eval`` on the same boxes as KITTI
+    annos through the native ``boxes_iou_3d`` / ``rotated_iou_matrix``
+    (every AP 100)."""
+    from epropnp_tpu_torch.det.kitti_eval import kitti_eval
+    from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
+    from epropnp_tpu_torch.ops import iou3d
+    from epropnp_tpu_torch.tools.test_det import ground_truth_results
+    print('path q: iou3d library '
+          + os.path.relpath(iou3d.load_library()._name, REPO))
+    dataset = NuScenes3DDataset(setup['paths']['val'],
+                                img_prefix=setup['root'])
+    metrics = dataset.evaluate(ground_truth_results(dataset),
+                               os.path.join(setup['root'], 'eval_gt'))
+    gt, dt = kitti_annos(dataset)
+    kitti = kitti_eval(gt, dt, classes=('Car',))
+    print('path q: ground truth as detections: ' + json.dumps(dict(
+        mean_ap=metrics['mean_ap'], nd_score=metrics['nd_score'],
+        kitti_min_ap=min(kitti.values()), kitti=kitti,
+        objects=int(sum(len(a['name']) for a in gt)))))
+    assert metrics['mean_ap'] >= GT_MAP_FLOOR, \
+        f'ground truth as detections: mAP {metrics["mean_ap"]}'
+    assert min(kitti.values()) == 100.0, f'KITTI AP {kitti}'
+    return dict(mean_ap=metrics['mean_ap'], kitti=kitti)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', default=None,
-                        help='comma-separated kernel phases to run alone')
+                        help='comma-separated kernel phases to run alone '
+                             '(a, a-groups, b, b+, e, e+, f, i, l, m); the '
+                             'main run (paths c-q) is skipped')
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(','))
     import torch
@@ -2959,8 +3303,16 @@ def main(argv=None) -> int:
              ('p epnp_device', lambda: path_sixdof_eval(
                  torch, device, 'epnp_device', eval_setup)),
              ('p rslm', lambda: path_sixdof_eval(torch, device, 'rslm',
-                                                 eval_setup)))
-    eval_setup = {}
+                                                 eval_setup)),
+             ('q train', lambda: path_det_dataset_train(torch, device,
+                                                        q_setup)),
+             ('q eval', lambda: path_det_dataset_eval(torch, device, q_setup,
+                                                      tta=False)),
+             ('q eval tta', lambda: path_det_dataset_eval(
+                 torch, device, q_setup, tta=True)),
+             ('q metrics', lambda: path_det_metrics_check(torch, device,
+                                                          q_setup)))
+    eval_setup, q_setup = {}, {}
     totals = dict.fromkeys(kernel_counters(), 0)
     results = {}
     for name, fn in paths:
@@ -2994,8 +3346,22 @@ def main(argv=None) -> int:
                 print(f'path n: launches {counts}, expected {expected}',
                       file=sys.stderr)
                 failed.append('n: Det training launches')
+        expected = {'q train': {k: v * DATASET_TRAIN_STEPS
+                                for k, v in DET_STEP_LAUNCHES.items()},
+                    'q eval': {k: v * 2 for k, v in
+                               DATASET_EVAL_LAUNCHES[False].items()},
+                    'q eval tta': {k: v * 2 for k, v in
+                                   DATASET_EVAL_LAUNCHES[True].items()},
+                    'q metrics': {}}.get(name)
+        if expected is not None \
+                and {k: v for k, v in counts.items() if v} != expected:
+            print(f'path {name}: launches {counts}, expected {expected}',
+                  file=sys.stderr)
+            failed.append(f'{name}: launches')
     if 'tmp' in eval_setup:
         eval_setup['tmp'].cleanup()
+    if 'root' in q_setup:
+        shutil.rmtree(q_setup['root'], ignore_errors=True)
     for name in ('j', 'n'):
         if name in results:
             t0 = time.perf_counter()

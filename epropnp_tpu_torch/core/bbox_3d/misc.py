@@ -122,24 +122,63 @@ def edge_intersection(corners, clip_axis: int, clip_val, greater: bool,
     return new_corners, new_inside, edge_valid_mask
 
 
+def rot_mat_to_yaw(rot_mat: torch.Tensor) -> torch.Tensor:
+    """(*, 3, 3) rotation matrices -> (*) yaw about the camera's y axis."""
+    return torch.atan2(rot_mat[..., 0, 2] - rot_mat[..., 2, 0],
+                       rot_mat[..., 0, 0] + rot_mat[..., 2, 2])
+
+
 def bboxes_3d_to_2d(bbox_3d, cam_intrinsic, imsize, z_clip: float = 0.1,
-                    min_size: float = 4.0):
+                    min_size: float = 4.0, clip: bool = False):
     """(bs, 7) boxes -> (bs, 4) image boxes and (bs,) validity (a box of
-    at least ``min_size`` pixels on each side); imsize (bs, 2) [h, w]."""
+    at least ``min_size`` pixels on each side); imsize (bs, 2) [h, w].
+    ``clip`` also clips the projected edges to the image before taking
+    the extent, so that corners off the canvas do not count."""
     bs = bbox_3d.shape[0]
+    if bs == 0:
+        return (bbox_3d.new_zeros((0, 4)),
+                torch.zeros((0,), dtype=torch.bool, device=bbox_3d.device))
     corners = compute_box_3d(bbox_3d)
     zc = torch.full((bs,), z_clip, dtype=bbox_3d.dtype, device=bbox_3d.device)
-    corners, in_front, _ = edge_intersection(corners, 2, zc, True)
+    corners, in_front, valid = edge_intersection(corners, 2, zc, True)
     pts = torch.einsum('...ni,...ji->...nj', corners, cam_intrinsic)
     pts_2d = pts[..., :2] / torch.clamp(pts[..., 2:], min=z_clip) + 0.5
+    in_canvas = in_front
+    if clip:
+        zero = torch.zeros((bs,), dtype=bbox_3d.dtype, device=bbox_3d.device)
+        pts_2d, cx0, valid = edge_intersection(pts_2d, 0, zero, True, valid)
+        pts_2d, cy0, valid = edge_intersection(pts_2d, 1, zero, True, valid)
+        pts_2d, cx1, valid = edge_intersection(pts_2d, 0, imsize[:, 1],
+                                               False, valid)
+        pts_2d, cy1, valid = edge_intersection(pts_2d, 1, imsize[:, 0],
+                                               False, valid)
+        in_canvas = in_canvas & cx0 & cx1 & cy0 & cy1
     wh = imsize.flip(-1)
-    big = torch.where(in_front[..., None], pts_2d,
+    big = torch.where(in_canvas[..., None], pts_2d,
                       wh[:, None, :].expand_as(pts_2d))
     x0y0 = torch.clamp(big.min(1).values, min=0.0)
-    small = torch.where(in_front[..., None], pts_2d, 0.0)
+    small = torch.where(in_canvas[..., None], pts_2d, 0.0)
     x1y1 = torch.minimum(small.max(1).values, wh)
     bbox = torch.cat([x0y0, x1y1], 1)
     return bbox, (x1y1 - x0y0).min(1).values >= min_size
+
+
+def xywhr2xyxyr(boxes_xywhr: torch.Tensor) -> torch.Tensor:
+    """(n, 5) rotated boxes [cx, cy, w, h, r] -> [x1, y1, x2, y2, r]."""
+    half_w = boxes_xywhr[:, 2] / 2
+    half_h = boxes_xywhr[:, 3] / 2
+    return torch.stack([
+        boxes_xywhr[:, 0] - half_w, boxes_xywhr[:, 1] - half_h,
+        boxes_xywhr[:, 0] + half_w, boxes_xywhr[:, 1] + half_h,
+        boxes_xywhr[:, 4]], -1)
+
+
+def batched_bev_nms(bbox_3d: torch.Tensor, batch_inds: torch.Tensor,
+                    nms_thr: float = 0.25) -> torch.Tensor:
+    """BEV NMS with groups (classes, images) kept apart by the
+    coordinate-offset trick. bbox_3d (n, 8+) [l, h, w, x, y, z, ry, score,
+    ...], batch_inds (n,) the group ids -> (n,) keep mask."""
+    return batched_bev_nms_per_image(bbox_3d, batch_inds, 1, nms_thr)
 
 
 def batched_bev_nms_per_image(bbox_3d: torch.Tensor,

@@ -83,11 +83,58 @@ def rect_intersection_area(box1: torch.Tensor, box2: torch.Tensor):
     return torch.where(num_valid >= 3, area, 0.0)
 
 
+def rotated_iou_pairwise(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """Aligned IoU of (n, 5) vs (n, 5) rotated boxes -> (n,)."""
+    inter = rect_intersection_area(boxes1, boxes2)
+    a1 = boxes1[..., 2] * boxes1[..., 3]
+    a2 = boxes2[..., 2] * boxes2[..., 3]
+    return inter / torch.clamp(a1 + a2 - inter, min=eps)
+
+
 def rotated_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor,
-                       eps: float = 1e-8) -> torch.Tensor:
-    """All-pairs IoU of (*, n, 5) x (*, m, 5) rotated boxes -> (*, n, m)."""
+                       eps: float = 1e-8, criterion: str = 'iou'
+                       ) -> torch.Tensor:
+    """All-pairs IoU of (*, n, 5) x (*, m, 5) rotated boxes -> (*, n, m).
+    ``criterion``: 'iou' (union), 'iof1' (area of boxes1) or 'inter' (the
+    intersection area)."""
     inter = rect_intersection_area(boxes1[..., :, None, :],
                                    boxes2[..., None, :, :])
+    if criterion == 'inter':
+        return inter
     a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
     a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
-    return inter / torch.clamp(a1 + a2 - inter, min=eps)
+    denom = a1 if criterion == 'iof1' else a1 + a2 - inter
+    return inter / torch.clamp(denom, min=eps)
+
+
+def _bev(b: torch.Tensor) -> torch.Tensor:
+    """Camera-frame boxes [l, h, w, x, y, z, ry] -> BEV [x, z, l, w, ry]."""
+    return torch.stack([b[..., 3], b[..., 5], b[..., 0], b[..., 2],
+                        b[..., 6]], -1)
+
+
+def box3d_overlap_camera(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                         eps: float = 1e-8, aligned: bool = True
+                         ) -> torch.Tensor:
+    """3D IoU of camera-frame boxes [l, h, w, x, y, z, ry]: the BEV
+    footprint on the x-z plane times the vertical (y, downward) overlap.
+    ``aligned``: (n, 7) x (n, 7) -> (n,); else all pairs -> (n, m)."""
+    if aligned:
+        inter_bev = rect_intersection_area(_bev(boxes1), _bev(boxes2))
+        y1_bot, y2_bot = boxes1[:, 4], boxes2[:, 4]
+        y1_top, y2_top = y1_bot - boxes1[:, 1], y2_bot - boxes2[:, 1]
+        v1 = boxes1[:, 0] * boxes1[:, 1] * boxes1[:, 2]
+        v2 = boxes2[:, 0] * boxes2[:, 1] * boxes2[:, 2]
+    else:
+        inter_bev = rotated_iou_matrix(_bev(boxes1), _bev(boxes2),
+                                       criterion='inter')
+        y1_bot, y2_bot = boxes1[:, 4][:, None], boxes2[:, 4][None, :]
+        y1_top = (boxes1[:, 4] - boxes1[:, 1])[:, None]
+        y2_top = (boxes2[:, 4] - boxes2[:, 1])[None, :]
+        v1 = (boxes1[:, 0] * boxes1[:, 1] * boxes1[:, 2])[:, None]
+        v2 = (boxes2[:, 0] * boxes2[:, 1] * boxes2[:, 2])[None, :]
+    inter_h = torch.clamp(torch.minimum(y1_bot, y2_bot)
+                          - torch.maximum(y1_top, y2_top), min=0.0)
+    inter = inter_bev * inter_h
+    return inter / torch.clamp(v1 + v2 - inter, min=eps)

@@ -6,10 +6,12 @@ flip TTA).
 
 Weights load from a JAX checkpoint (flax msgpack, read by
 ``utils.checkpoint.load_jax_variables`` and mapped by
-``utils.convert.det_state_dict``) or from a torch file (``.pth``, ``.pt``,
-``.tar``): a torchvision ResNet, an mmdet backbone and neck, or a full
-EProPnPDet checkpoint. The port's parameter names are mmdet's, so a torch
-file's entries load by name.
+``utils.convert.det_state_dict``), from a training checkpoint of the port
+(``utils.checkpoint.save_checkpoint``, as ``det.main.train_loop`` writes
+it) or from another torch file (``.pth``, ``.pt``, ``.tar``): a
+torchvision ResNet, an mmdet backbone and neck, or a full EProPnPDet
+checkpoint. The port's parameter names are mmdet's, so a torch file's
+entries load by name.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..models.detectors.epropnp_det import EProPnPDet
 from ..ops.deform_conv import DeformConv
 from ..utils.checkpoint import TORCH_SUFFIXES, load_jax_variables
 from ..utils.convert import det_state_dict, flax_tree_has_dcn_bias
+from ..utils.timer import IterTimers
 from . import test as dtest
 from .config import DetConfig
 from .pipelines import REFERENCE_CROP_BOX, default_pipeline
@@ -69,6 +72,25 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
         if isinstance(v, torch.Tensor):
             out[k] = v.detach()
     return out
+
+
+def load_train_state_model(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's entries of a training checkpoint of the port (the
+    ``{'state': ..., 'optimizer': ...}`` file of
+    ``utils.checkpoint.save_checkpoint``, whose state is a
+    ``det.train.DetTrainState``), under the model's own names; None for
+    any other torch file."""
+    obj = torch.load(path, map_location='cpu', weights_only=True)
+    if not (isinstance(obj, dict) and isinstance(obj.get('state'), dict)):
+        return None
+    return {k[len('model.'):]: v for k, v in obj['state'].items()
+            if k.startswith('model.')}
+
+
+def _has_dcn_bias(sd: Dict[str, torch.Tensor]) -> bool:
+    suffix = '.conv_offset.weight'
+    return any(k.endswith(suffix) and k[:-len(suffix)] + '.bias' in sd
+               for k in sd)
 
 
 def torch_checkpoint_has_dcn_offsets(path: str) -> bool:
@@ -157,16 +179,20 @@ def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
                   device=None, **overrides) -> EProPnPDet:
     """Build the model in eval mode with channels-last weights, on the
     CUDA card unless ``device`` says otherwise (the tests pass the CPU),
-    and load ``checkpoint`` if given: a torch ``.pth/.pt/.tar`` file
-    (:func:`load_torch_weights`) or a JAX checkpoint in flax msgpack (a
-    variables or train-state file of the JAX package). Without a
-    checkpoint the weights are torch's default initialisation (seed with
-    ``torch.manual_seed``).
+    and load ``checkpoint`` if given: a training checkpoint of the port
+    (``det.main.train_loop``'s ``latest.pt``; recognised by its top-level
+    ``state`` entry, whose model entries load strictly), another torch
+    ``.pth/.pt/.tar`` file (:func:`load_torch_weights`) or a JAX
+    checkpoint in flax msgpack (a variables or train-state file of the JAX
+    package). Without a checkpoint the weights are torch's default
+    initialisation (seed with ``torch.manual_seed``).
 
-    A torch file with mmcv DCN offsets builds the model with
-    ``dcn_modulation_scale=1.0`` (mmcv's plain-sigmoid modulation); a JAX
-    tree whose DCNs have a non-zero bias builds it with
-    ``DetConfig.dcn_bias`` (``utils.convert.flax_tree_has_dcn_bias``).
+    An external torch file with mmcv DCN offsets builds the model with
+    ``dcn_modulation_scale=1.0`` (mmcv's plain-sigmoid modulation); the
+    port's own checkpoint keeps ``cfg``'s scale, which it was trained
+    with. A JAX tree whose DCNs have a non-zero bias, or a port checkpoint
+    whose DCNs have a bias, builds it with ``DetConfig.dcn_bias``
+    (``utils.convert.flax_tree_has_dcn_bias``).
 
     The parameters stay f32 under the bf16 serving options. On the card,
     serve with ``torch.backends.cudnn.benchmark = True`` and
@@ -176,9 +202,13 @@ def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
     algorithm an exhaustive search finds (``chip_smoke.py`` phase g).
     """
     device = torch.device('cuda' if device is None else device)
-    variables = None
+    variables = own = None
     if checkpoint and checkpoint.endswith(TORCH_SUFFIXES):
-        if cfg.dcn_modulation_scale != 1.0 \
+        own = load_train_state_model(checkpoint)
+        if own is not None:
+            if _has_dcn_bias(own) and not cfg.dcn_bias:
+                cfg = dataclasses.replace(cfg, dcn_bias=True)
+        elif cfg.dcn_modulation_scale != 1.0 \
                 and torch_checkpoint_has_dcn_offsets(checkpoint):
             cfg = dataclasses.replace(cfg, dcn_modulation_scale=1.0)
     elif checkpoint:
@@ -188,6 +218,8 @@ def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
     model = build_detector(cfg, **overrides)
     if variables is not None:
         model.load_state_dict(det_state_dict(variables, cfg), strict=True)
+    elif own is not None:
+        model.load_state_dict(own, strict=True)
     elif checkpoint:
         load_torch_weights(model, cfg, checkpoint)
     return model.to(device, memory_format=torch.channels_last).eval()
@@ -197,29 +229,38 @@ def inference_detector(model: EProPnPDet, cfg: DetConfig,
                        imgs: List[np.ndarray],
                        cam_intrinsics: List[np.ndarray], infer_fn=None,
                        rng: Optional[torch.Generator] = None,
+                       timers: Optional[IterTimers] = None,
                        crop_box='auto', tta: bool = False):
     """Raw images (h, w, 3) -> per-image per-class detection arrays.
 
     ``crop_box='auto'`` applies the reference sky-band crop
     (``REFERENCE_CROP_BOX``: 1600x900 -> 1600x672) when the frame is at
     least that large; None disables it, or pass a box. The host pipeline
-    runs in numpy; the model, the solve and the NMS on the model's device.
+    runs in numpy; the model, the solve and the NMS on the model's device,
+    in its parameters' dtype (f32 under the bf16 serving options too).
     ``tta`` runs the horizontal-flip test-time augmentation
     (``det.test.make_tta_inference_fn``): the images and x2d maps are
     flipped along their width on the device, as the JAX API flips them.
+    ``timers`` (``utils.timer.IterTimers``) times the stages as the JAX
+    API does: 'data time' (the pipeline), 'model time' (the inference
+    function, the card synchronised) and 'post-proc. time' (the results
+    to numpy).
     """
+    timers = timers or IterTimers(enabled=False)
     samples = []
-    for img, k in zip(imgs, cam_intrinsics):
-        box = crop_box
-        if box == 'auto':
-            box = REFERENCE_CROP_BOX if (
-                img.shape[0] >= REFERENCE_CROP_BOX[3]
-                and img.shape[1] >= REFERENCE_CROP_BOX[2]) else None
-        samples.append(default_pipeline(
-            dict(img=img, cam_intrinsic=np.asarray(k)), crop_box=box))
-    device = next(model.parameters()).device
-    t = lambda a, dtype=torch.float32: torch.as_tensor(  # noqa: E731
-        np.asarray(a), dtype=dtype).to(device)
+    with timers('data time'):
+        for img, k in zip(imgs, cam_intrinsics):
+            box = crop_box
+            if box == 'auto':
+                box = REFERENCE_CROP_BOX if (
+                    img.shape[0] >= REFERENCE_CROP_BOX[3]
+                    and img.shape[1] >= REFERENCE_CROP_BOX[2]) else None
+            samples.append(default_pipeline(
+                dict(img=img, cam_intrinsic=np.asarray(k)), training=False,
+                crop_box=box))
+    like = next(model.parameters())
+    t = lambda a, dtype=like.dtype: torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=dtype).to(like.device)
     stack = lambda key: np.stack([s[key] for s in samples])  # noqa: E731
     if infer_fn is None:
         infer_fn = (dtest.make_tta_inference_fn if tta
@@ -229,11 +270,14 @@ def inference_detector(model: EProPnPDet, cfg: DetConfig,
     shapes = t([s['img_shape'] for s in samples])
     ori = t([s['ori_shape'] for s in samples])
     x2d_mask = t(stack('img_dense_x2d_mask'))
-    if tta:
-        results = infer_fn(img, torch.flip(img, [2]), cam, shapes, ori, x2d,
-                           torch.flip(x2d, [2]), x2d_mask, rng=rng)
-    else:
-        results = infer_fn(img, cam, shapes, ori,
-                           t([s['flip'] for s in samples], torch.bool), x2d,
-                           x2d_mask, rng=rng)
-    return dtest.results_to_numpy(results, len(samples), cfg.num_classes)
+    with timers('model time'):
+        if tta:
+            results = infer_fn(img, torch.flip(img, [2]), cam, shapes, ori,
+                               x2d, torch.flip(x2d, [2]), x2d_mask, rng=rng)
+        else:
+            results = infer_fn(img, cam, shapes, ori,
+                               t([s['flip'] for s in samples], torch.bool),
+                               x2d, x2d_mask, rng=rng)
+    with timers('post-proc. time'):
+        return dtest.results_to_numpy(results, len(samples),
+                                      cfg.num_classes)

@@ -492,7 +492,7 @@ def test_inference_pipeline_matches_jax(hw, crop_box):
     j = jpipelines.default_pipeline(dict(img=img.copy(), cam_intrinsic=k),
                                     training=False, crop_box=crop_box)
     t = tpipelines.default_pipeline(dict(img=img.copy(), cam_intrinsic=k),
-                                    crop_box=crop_box)
+                                    training=False, crop_box=crop_box)
     for key in ('img', 'img_dense_x2d', 'img_dense_x2d_mask'):
         np.testing.assert_array_equal(t[key], j[key], err_msg=key)
     for key in ('img_shape', 'ori_shape', 'flip', 'pad_shape'):

@@ -335,12 +335,22 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.sixdof.dataset, '
             'epropnp_tpu_torch.sixdof.model_points, '
             'epropnp_tpu_torch.utils.checkpoint, '
-            'epropnp_tpu_torch.visualization.orient_density; '
+            'epropnp_tpu_torch.visualization.orient_density, '
+            'epropnp_tpu_torch.ops.iou3d, epropnp_tpu_torch.det.kitti_eval, '
+            'epropnp_tpu_torch.det.kitti_dataset, '
+            'epropnp_tpu_torch.det.nuscenes_eval, '
+            'epropnp_tpu_torch.det.nuscenes_dataset, '
+            'epropnp_tpu_torch.det.synthetic, '
+            'epropnp_tpu_torch.det.pipelines, epropnp_tpu_torch.utils.timer, '
+            'epropnp_tpu_torch.tools.train_det, '
+            'epropnp_tpu_torch.tools.test_det, '
+            'epropnp_tpu_torch.tools.validate_det_synthetic; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
             'assert "flax" not in sys.modules and "msgpack" not in '
             'sys.modules; '
             'assert "cv2" not in sys.modules, "cv2 imported at module level"; '
+            'assert "nuscenes" not in sys.modules, "nuscenes imported"; '
             'assert "epropnp_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, timeout=120, check=False, cwd=REPO_ROOT)
