@@ -66,7 +66,9 @@ i. K1 in the training modes (the trust region with projection bounds,
 j. 6DoF training: ``sixdof.main.train_loop`` at
    ``SixDoFConfig.epropnp_basic()`` width (CDPN-34, 32 crops of 256x256,
    512 points, AMIS 512 samples in 4 iterations, RMSprop; K1 on) on
-   seeded synthetic batches, 10 steps of which the last 8 are timed; every
+   seeded synthetic batches, with the loop's default prefetch (a producer
+   thread and pinned copies on a side stream), 10 steps of which the last
+   8 are timed; every
    step must launch K1 twice, both in its training modes; then one step
    profiled by kind. Before it (not counted), one step at reduced size
    (ResNet-18, 64x64) on the card and on the CPU with the same draws.
@@ -129,11 +131,32 @@ q. Det on a dataset: a nuScenes-format tree written from a seed under
    ``results_nusc.json``. Then the val ground truth as detections through
    ``NuScenes3DDataset.evaluate`` (mAP at least 0.95) and ``kitti_eval``
    on the same boxes through the native ``ops.iou3d`` (every AP 100).
+r. 6DoF on a dataset, through the CLIs: a LineMOD-format tree written
+   from a seed under ``build/`` by ``sixdof.synthetic`` (class ape, 192
+   train and 64 test frames of 640x480, PNG frames by ``utils.image_ops``
+   with every row filter type, ``.npy`` coordinate maps,
+   ``models/models_info.txt`` and ``obj_01.ply``). Training:
+   ``tools.train_6dof.main`` at ``epropnp_basic`` (CDPN-34, batch 32, 2
+   epochs of 6 steps), the host pipeline (PNG decoding, denoising, DZI
+   crops, collation; no OpenCV) on a background thread ahead of the step;
+   each step launches K1 twice in its training modes and nothing else;
+   per step the wall, samples/s and the host pipeline's time for the
+   batch; the step from a batch already on the card (the end of epoch 0,
+   all made in the lead that step 0's build gives the producer) against
+   path j's, and the pace once no lead is left (epoch 1's steps that wait
+   for the producer). Evaluation: ``tools.test_6dof.main`` on the
+   run's ``latest.pt`` over the 64 test frames in batches of 32 with
+   ``--init epnp_device`` (K1 once a batch) and ``rslm`` (twice): batch
+   walls and finite metrics. Validation:
+   ``tools.validate_6dof_synthetic.main`` (64 train and 32 test frames, 2
+   epochs, ``epnp_device``) on a tree of its own, its JSON line. Neither
+   path imports cv2; the trees are removed at the end.
 
 Every launch counter is set to 0 just before each path that a user's
 call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k, n, o,
-p with each init, and q's training, each of its evaluations and its
-metrics check) and read just after it. In every path the same
+p with each init, q's training, each of its evaluations and its metrics
+check, and r's training, each evaluation and the validation) and read
+just after it. In every path the same
 convention holds: the launches of a check of the card against the CPU
 twins made inside the path (c, d, g, h, o, p) are taken back out of its
 counts (``uncounted``), while a profiled repeat of the path's own call
@@ -148,7 +171,7 @@ blocks an SM at the main path's shapes, and each K1/K2 row its bound's
 share of its time (``bound_share``).
 
 ``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
-i, l, m), not the main run (paths c, d, g, h, j, k, n, o, p and q), and
+i, l, m), not the main run (paths c, d, g, h, j, k, n, o, p, q and r), and
 prints no ``ok`` line. ``--only
 a-groups`` times K1 over its group sizes at the main path's shapes (the
 measurement behind ``lm_kernel.group_size``); it is not part of the full
@@ -158,6 +181,7 @@ run.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -1974,8 +1998,9 @@ def profile_train_step(torch, fn):
 
 def path_train(torch, device, steps=10, warmup=2, bs=32):
     """``sixdof.main.train_loop`` at ``SixDoFConfig.epropnp_basic()`` width
-    (CDPN-34, 32 crops of 256x256, K1 on) on seeded synthetic batches:
-    ``steps`` steps, the first ``warmup`` untimed."""
+    (CDPN-34, 32 crops of 256x256, K1 on) on seeded synthetic batches,
+    with its default prefetch: ``steps`` steps, the first ``warmup``
+    untimed."""
     import dataclasses
     import tempfile
     from epropnp_tpu_torch.sixdof import main as smain
@@ -2820,27 +2845,14 @@ def sixdof_eval_setup(torch, device, setup):
     return setup
 
 
-def path_sixdof_eval(torch, device, init, setup):
-    """Path p: ``sixdof.main.test_loop`` on the checkpoint of
-    :func:`sixdof_eval_setup` over 96 crops in batches of 32 with ``init``;
-    each batch must launch K1 ``EVAL_K1_PER_BATCH[init]`` times and nothing
-    else. Prints each batch's wall and ``PoseEvaluator``'s metrics."""
-    from epropnp_tpu_torch.sixdof import main as smain
+def timed_test_loop(torch, run):
+    """``run()`` (a call that reaches ``sixdof.main.test_loop``) with every
+    batch of its ``infer_poses`` timed: returns ``(run(), batches)``. A
+    batch's wall runs from the end of the previous batch's ``infer_poses``
+    (from the call for the first batch, which loads the checkpoint) to the
+    end of its own, and its launches are the counts' growth over that
+    span."""
     from epropnp_tpu_torch.sixdof import test as stest
-    from epropnp_tpu_torch.sixdof.main import load_cdpn
-    s = sixdof_eval_setup(torch, device, setup)
-    ds = s['data']
-    if init == 'epnp_device':
-        loaded = load_cdpn(s['cfg'], s['path'], device=device)
-        assert same_state(torch, loaded, s['state_dict']), \
-            'CDPN checkpoint: weights differ'
-        del loaded
-        print("path p: init='epnp' (cv2.solvePnP on the host) is not driven "
-              'here: this machine has no cv2')
-    # each batch's wall runs from the end of the previous batch's
-    # ``infer_poses`` (from the call of ``test_loop`` for the first batch,
-    # which loads the checkpoint) to the end of its own, and its launches
-    # are the counts' growth over that span
     batches = []
     last = [launch_counts(), time.perf_counter()]
     infer_poses = stest.infer_poses
@@ -2857,16 +2869,35 @@ def path_sixdof_eval(torch, device, init, setup):
         last[:] = [now, t]
         return res
 
-    # the RSLM draws from a generator on the card, as a caller on the card
-    # would (a CPU generator draws them on the host, PERF.md)
     stest.infer_poses = timed_infer_poses
     try:
-        metrics = smain.test_loop(s['cfg'], ds, s['path'], ds.models,
-                                  ds.diameters, init=init,
-                                  batch_size=EVAL_BATCH, device=device,
-                                  rng=torch.Generator(device).manual_seed(0))
+        return run(), batches
     finally:
         stest.infer_poses = infer_poses
+
+
+def path_sixdof_eval(torch, device, init, setup):
+    """Path p: ``sixdof.main.test_loop`` on the checkpoint of
+    :func:`sixdof_eval_setup` over 96 crops in batches of 32 with ``init``;
+    each batch must launch K1 ``EVAL_K1_PER_BATCH[init]`` times and nothing
+    else. Prints each batch's wall and ``PoseEvaluator``'s metrics."""
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof.main import load_cdpn
+    s = sixdof_eval_setup(torch, device, setup)
+    ds = s['data']
+    if init == 'epnp_device':
+        loaded = load_cdpn(s['cfg'], s['path'], device=device)
+        assert same_state(torch, loaded, s['state_dict']), \
+            'CDPN checkpoint: weights differ'
+        del loaded
+        print("path p: init='epnp' (cv2.solvePnP on the host) is not driven "
+              'here: this machine has no cv2')
+    # the RSLM draws from a generator on the card, as a caller on the card
+    # would (a CPU generator draws them on the host, PERF.md)
+    metrics, batches = timed_test_loop(torch, lambda: smain.test_loop(
+        s['cfg'], ds, s['path'], ds.models, ds.diameters, init=init,
+        batch_size=EVAL_BATCH, device=device,
+        rng=torch.Generator(device).manual_seed(0)))
     for i, b in enumerate(batches):
         print(f'path p ({init}): batch {i}: ' + json.dumps(b))
     print(f'path p ({init}): metrics ' + json.dumps(
@@ -3214,13 +3245,307 @@ def path_det_metrics_check(torch, device, setup):
     assert min(kitti.values()) == 100.0, f'KITTI AP {kitti}'
     return dict(mean_ap=metrics['mean_ap'], kitti=kitti)
 
+# ------------------------------------------- 6DoF on a dataset (path r)
+
+# Path r: a LineMOD-format tree written from a seed by ``sixdof.synthetic``
+# (class ape, 640x480 frames) and the 6DoF CLIs on it: LM_EPOCHS epochs of
+# LM_FRAMES['train'] / LM_BATCH training steps at ``epropnp_basic``, the
+# LM_FRAMES['test'] test frames in batches of LM_BATCH with each init,
+# then the validation tool at LM_VALIDATE on a tree of its own.
+LM_FRAMES, LM_BATCH, LM_EPOCHS = {'train': 192, 'test': 64}, 32, 2
+LM_VALIDATE = dict(frames=64, test_frames=32, epochs=2, bs=16)
+
+
+def write_models_dir(root, info, cls='ape'):
+    """``models/models_info.txt`` and ``models/obj_01.ply`` (ascii; both
+    in mm) of the generator's cuboid: the files ``tools.test_6dof``
+    reads."""
+    from epropnp_tpu_torch.sixdof import ref_constants as ref
+    from epropnp_tpu_torch.sixdof.synthetic import cuboid_surface
+    mdir = os.path.join(root, 'models')
+    os.makedirs(mdir, exist_ok=True)
+    i = info[cls]
+    with open(os.path.join(mdir, 'models_info.txt'), 'w') as f:
+        f.write(f'{ref.OBJ2IDX[cls]}: ' + ', '.join(
+            f'{k}: {i[k] * 1e3:.3f}' for k in (
+                'diameter', 'min_x', 'min_y', 'min_z', 'size_x', 'size_y',
+                'size_z')) + '\n')
+    ext = np.array([i['size_x'], i['size_y'], i['size_z']]) / 2.0
+    pts = cuboid_surface(ext.astype(np.float32), pts_per_face=16) * 1e3
+    with open(os.path.join(mdir, f'obj_{ref.OBJ2IDX[cls]:02d}.ply'),
+              'w') as f:
+        f.write('ply\nformat ascii 1.0\n'
+                f'element vertex {len(pts)}\n'
+                'property float x\nproperty float y\nproperty float z\n'
+                'end_header\n')
+        f.writelines(f'{p[0]:.3f} {p[1]:.3f} {p[2]:.3f}\n' for p in pts)
+
+
+def tree_mib(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs) / 2 ** 20
+
+
+def lm_dataset_setup(setup):
+    """Path r's tree, written once into ``setup`` under ``build/``."""
+    if setup:
+        return setup
+    from epropnp_tpu_torch.sixdof import synthetic
+    root = os.path.join(REPO, 'build', 'chip_smoke_lm_tree')
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = synthetic.generate_dataset(root, cls='ape',
+                                      n_train=LM_FRAMES['train'],
+                                      n_test=LM_FRAMES['test'], seed=0)
+    write_models_dir(root, info)
+    print(f'path r: LineMOD-format tree of {sum(LM_FRAMES.values())} frames '
+          f'of 640x480 written in {time.perf_counter() - t0:.1f} s '
+          f'({tree_mib(root):.1f} MiB)')
+    setup.update(root=root, save=os.path.join(root, 'run'))
+    return setup
+
+
+def no_cv2(label):
+    print(f'path r: cv2 imported after {label}: {"cv2" in sys.modules}')
+    assert 'cv2' not in sys.modules, f'path r: cv2 imported ({label})'
+
+
+def prefetch_stream_check(torch, device, n=12, shape=(32, 256, 256, 3)):
+    """``parallel.prefetch.prefetch_to_device`` on the card: ``n`` host
+    batches of path r's crop size, batch i filled with i, through a
+    background producer; the consumer stream spins (``torch.cuda._sleep``)
+    before it reads each batch and drops it at once, so a copy that the
+    consumer did not wait for, or memory handed on while the consumer's
+    work still reads it, shows as wrong entries."""
+    from epropnp_tpu_torch.parallel.prefetch import (BackgroundIterator,
+                                                     prefetch_to_device)
+
+    def batches():
+        for i in range(n):
+            yield (np.full(shape, i, np.float32), np.full((shape[0],), i,
+                                                          np.float32))
+    wrong = []
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(prefetch_to_device(
+            BackgroundIterator(batches(), maxsize=3), depth=2,
+            device=device)):
+        torch.cuda._sleep(2_000_000)
+        wrong.append((x != i).sum() + (y != i).sum())
+        del x, y
+    errors = int(torch.stack(wrong).sum())
+    print(f'path r: prefetch_to_device stream check: {n} batches of '
+          f'{np.prod(shape) * 4 / 2 ** 20:.1f} MiB in '
+          f'{(time.perf_counter() - t0) * 1e3:.1f} ms, wrong entries '
+          f'{errors}')
+    assert errors == 0, 'prefetch_to_device: a batch was read wrong'
+
+
+def host_pipeline_stages(root, n=LM_BATCH):
+    """The 6DoF host pipeline of one training batch by stage, on this
+    thread alone (no training beside it): ``LineMODDataset._load`` (PNG
+    rgb and mask, ``.npy`` coordinates), ``denoise_coor``, the rest of
+    ``build_sample`` (DZI crop, resizes, targets) and ``collate``, in
+    ms."""
+    from epropnp_tpu_torch.sixdof import dataset as sdataset
+    from epropnp_tpu_torch.sixdof.config import SixDoFConfig
+    cfg = SixDoFConfig.epropnp_basic()
+    ds = sdataset.LineMODDataset(cfg, root, split='train', classes=['ape'])
+    ms = dict.fromkeys(('read', 'denoise', 'crop', 'collate'), 0.0)
+    samples = []
+    for rec in ds.annot[:n]:
+        t0 = time.perf_counter()
+        rgb, coor, msk, pose, box = ds._load(rec)
+        t1 = time.perf_counter()
+        coor = sdataset.denoise_coor(coor)
+        t2 = time.perf_counter()
+        samples.append(sdataset.build_sample(
+            cfg, 'ape', rgb, coor, msk, pose, box, ds.min_extents('ape'),
+            rng=ds.rng, denoise=False))
+        t3 = time.perf_counter()
+        for k, dt in zip(('read', 'denoise', 'crop'),
+                         (t1 - t0, t2 - t1, t3 - t2)):
+            ms[k] += dt * 1e3
+    t0 = time.perf_counter()
+    sdataset.collate(samples, {'ape': ds.min_extents('ape')})
+    ms['collate'] = (time.perf_counter() - t0) * 1e3
+    print(f'path r: host pipeline of {n} frames by stage, one thread alone '
+          f'(ms): ' + json.dumps(ms) + f', total {sum(ms.values()):.1f}')
+
+
+def path_lm_train(torch, device, setup, j_ms):
+    """Path r, training: ``tools.train_6dof.main`` at ``epropnp_basic``,
+    LM_EPOCHS epochs of batch 32 over the tree, each step launching K1
+    twice in its training modes and nothing else; per step the wall,
+    samples/s and the host pipeline's time for the batch (read, denoise,
+    crop, collate: measured on the producer thread).
+
+    Two paces. From a ready batch: epoch 0's last ``prefetch`` steps (the
+    loop's default, 2), whose batches the producer made while step 0
+    built and warmed up, against path j's step (``j_ms``). Once no lead
+    is left: each epoch starts its producer anew, and
+    ``prefetch_to_device`` holds ``prefetch`` batches back, so epoch 1's
+    step 0 waits for ``prefetch + 1`` batches, its steps 1 to ``n -
+    prefetch - 1`` each wait for one more (the pace of a long epoch),
+    and its last ``prefetch`` come ready."""
+    from epropnp_tpu_torch.sixdof import dataset as sdataset
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.tools import train_6dof
+    setup = lm_dataset_setup(setup)
+    prefetch_stream_check(torch, device)
+    host_ms, stamps, per_step, metrics = [], [], [], []
+    last = dict(launch_counts())
+    batches, train_loop = sdataset.LineMODDataset.batches, smain.train_loop
+    prefetch = inspect.signature(train_loop).parameters['prefetch'].default
+
+    def timed_batches(self, *args, **kwargs):  # runs on the producer thread
+        it = batches(self, *args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    def on_step(epoch, i, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+        now = launch_counts()
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+
+    sdataset.LineMODDataset.batches = timed_batches
+    smain.train_loop = lambda *a, **k: train_loop(*a, on_step=on_step, **k)
+    t0 = time.perf_counter()
+    try:
+        train_6dof.main(['--exp', 'epropnp_basic', '--data', setup['root'],
+                         '--save', setup['save'], '--epochs', str(LM_EPOCHS),
+                         '--batch-size', str(LM_BATCH), '--device', 'cuda'])
+    finally:
+        sdataset.LineMODDataset.batches = batches
+        smain.train_loop = train_loop
+    total = time.perf_counter() - t0
+    n = LM_FRAMES['train'] // LM_BATCH
+    walls = np.diff([t0] + stamps) * 1e3
+    ready = list(range(n - prefetch, n))
+    steady = list(range(n + 1, 2 * n - prefetch))
+    role = {0: 'build', n: 'refill'}
+    role.update({i: 'ready' for i in ready})
+    role.update({i: 'steady' for i in steady})
+    role.update({i: 'drain' for i in range(2 * n - prefetch, 2 * n)})
+    for i, (m, c) in enumerate(zip(metrics, per_step)):
+        print(f'path r: epoch {i // n} step {i % n} ({role.get(i, "lead")}): '
+              f'wall {walls[i]:.3f} ms, {LM_BATCH / walls[i] * 1e3:.3f} '
+              f'samples/s, host pipeline {host_ms[i]:.3f} ms, '
+              + json.dumps({k: round(v, 6) for k, v in m.items()})
+              + ' launches ' + json.dumps({k: v for k, v in c.items() if v}))
+    ready_ms = float(np.mean(walls[ready]))
+    steady_ms = float(np.mean(walls[steady]))
+    # steady step i waits for batch i + prefetch, the one it pulls through
+    # the device prefetch before it receives batch i
+    host = float(np.mean(np.asarray(host_ms)[np.add(steady, prefetch)]))
+    print('path r: training ' + json.dumps(dict(
+        epochs=LM_EPOCHS, steps_per_epoch=n, prefetch=prefetch,
+        ready_steps=ready, ready_ms_per_step=ready_ms,
+        ready_samples_per_s=LM_BATCH / ready_ms * 1e3,
+        path_j_ms_per_step=j_ms,
+        steady_steps=steady, steady_ms_per_step=steady_ms,
+        steady_samples_per_s=LM_BATCH / steady_ms * 1e3,
+        steady_producer_ms=host,
+        # of a synchronous loop's host pipeline + step, the part the
+        # producer thread ran while the card's step did
+        steady_overlap_ms=host + ready_ms - steady_ms,
+        host_pipeline_ms=host_ms,
+        skipped_steps=int(sum(m['skipped'] for m in metrics)),
+        cli_s_with_build_and_checkpoints=total)))
+    assert len(metrics) == LM_EPOCHS * n, 'train_6dof: wrong number of steps'
+    assert steady, 'path r: no step waits for the producer'
+    assert all(np.isfinite(v) for m in metrics for k, v in m.items()
+               if k != 'grad_norm'), 'path r: a non-finite loss'
+    assert sum(m['skipped'] for m in metrics) < len(metrics), \
+        'path r: every step skipped'
+    for i, c in enumerate(per_step):
+        assert {k: v for k, v in c.items() if v} == {'K1-train': 2}, \
+            f'path r: training step {i}: launches {c}'
+    setup['checkpoint'] = os.path.join(setup['save'], 'latest.pt')
+    assert os.path.isfile(setup['checkpoint']), 'train_6dof: no latest.pt'
+    host_pipeline_stages(setup['root'])
+    no_cv2('training')
+    return dict(ready_ms=ready_ms, steady_ms=steady_ms, host_ms=host_ms)
+
+
+def path_lm_eval(torch, device, setup, init):
+    """Path r, evaluation: ``tools.test_6dof.main`` on the training run's
+    ``latest.pt`` over the LM_FRAMES['test'] test frames in batches of 32
+    with ``init``: K1 ``EVAL_K1_PER_BATCH[init]`` times a batch and
+    nothing else; each batch's wall and the metrics, which must be
+    finite."""
+    from epropnp_tpu_torch.tools import test_6dof
+    setup = lm_dataset_setup(setup)
+    metrics, batches = timed_test_loop(torch, lambda: test_6dof.main([
+        '--exp', 'epropnp_basic', '--data', setup['root'], '--checkpoint',
+        setup['checkpoint'], '--init', init, '--batch-size', str(LM_BATCH),
+        '--device', 'cuda']))
+    for i, b in enumerate(batches):
+        print(f'path r ({init}): batch {i}: ' + json.dumps(b))
+    print(f'path r ({init}): mean metrics ' + json.dumps(
+        test_6dof.mean_metrics(metrics),
+        default=lambda a: np.asarray(a).tolist()))
+    assert len(batches) == LM_FRAMES['test'] // LM_BATCH, 'test_6dof: batches'
+    for b in batches:
+        assert b['launches'] == {'K1': EVAL_K1_PER_BATCH[init]}, \
+            f'path r {init} batch: launches {b}'
+    assert set(metrics) == {'pose', 'add', 'arp_2d'}
+    assert all(np.isfinite(np.asarray(v, np.float64)).all()
+               for m in metrics.values() for per_cls in m.values()
+               for v in per_cls.values()), 'path r: non-finite metric'
+    no_cv2(f'evaluation ({init})')
+    return [b['wall_ms'] for b in batches]
+
+
+def path_lm_validate(torch, device):
+    """Path r, validation: ``tools.validate_6dof_synthetic.main`` reduced
+    to LM_VALIDATE with ``--init epnp_device`` and K1 on, on a tree of its
+    own (removed afterwards); prints its JSON line."""
+    from epropnp_tpu_torch.tools import validate_6dof_synthetic
+    root = os.path.join(REPO, 'build', 'chip_smoke_lm_validate')
+    shutil.rmtree(root, ignore_errors=True)
+    v = LM_VALIDATE
+    try:
+        out = validate_6dof_synthetic.main([
+            '--root', os.path.join(root, 'tree'), '--save-dir',
+            os.path.join(root, 'run'), '--frames', str(v['frames']),
+            '--test-frames', str(v['test_frames']), '--epochs',
+            str(v['epochs']), '--bs', str(v['bs']), '--init', 'epnp_device',
+            '--device', 'cuda'])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print('path r: validate ' + json.dumps(out))
+    accs = [*out['add_untrained'].values(), *out['add_best'].values()]
+    assert np.isfinite(accs).all(), 'validate: non-finite ADD'
+    no_cv2('validation')
+    return out
+
+
+def lm_validate_launches():
+    """K1 launches of path r's validation: two training-mode launches a
+    step; one a test batch with ``epnp_device``, over the untrained model
+    and each epoch's checkpoint."""
+    v = LM_VALIDATE
+    steps = v['frames'] // v['bs'] * v['epochs']
+    evals = 1 + v['epochs']  # ckpt_interval max(1, epochs // 10) = 1
+    return {'K1-train': 2 * steps,
+            'K1': evals * -(-v['test_frames'] // v['bs'])}
+
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', default=None,
                         help='comma-separated kernel phases to run alone '
                              '(a, a-groups, b, b+, e, e+, f, i, l, m); the '
-                             'main run (paths c-q) is skipped')
+                             'main run (paths c-r) is skipped')
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(','))
     import torch
@@ -3311,8 +3636,15 @@ def main(argv=None) -> int:
              ('q eval tta', lambda: path_det_dataset_eval(
                  torch, device, q_setup, tta=True)),
              ('q metrics', lambda: path_det_metrics_check(torch, device,
-                                                          q_setup)))
-    eval_setup, q_setup = {}, {}
+                                                          q_setup)),
+             ('r train', lambda: path_lm_train(
+                 torch, device, r_setup, results.get('j', {}).get('ms'))),
+             ('r eval epnp_device', lambda: path_lm_eval(
+                 torch, device, r_setup, 'epnp_device')),
+             ('r eval rslm', lambda: path_lm_eval(torch, device, r_setup,
+                                                  'rslm')),
+             ('r validate', lambda: path_lm_validate(torch, device)))
+    eval_setup, q_setup, r_setup = {}, {}, {}
     totals = dict.fromkeys(kernel_counters(), 0)
     results = {}
     for name, fn in paths:
@@ -3352,7 +3684,13 @@ def main(argv=None) -> int:
                                DATASET_EVAL_LAUNCHES[False].items()},
                     'q eval tta': {k: v * 2 for k, v in
                                    DATASET_EVAL_LAUNCHES[True].items()},
-                    'q metrics': {}}.get(name)
+                    'q metrics': {},
+                    'r train': {'K1-train': 2 * LM_EPOCHS
+                                * LM_FRAMES['train'] // LM_BATCH},
+                    'r eval epnp_device': {'K1': LM_FRAMES['test']
+                                           // LM_BATCH},
+                    'r eval rslm': {'K1': 2 * LM_FRAMES['test'] // LM_BATCH},
+                    'r validate': lm_validate_launches()}.get(name)
         if expected is not None \
                 and {k: v for k, v in counts.items() if v} != expected:
             print(f'path {name}: launches {counts}, expected {expected}',
@@ -3360,8 +3698,9 @@ def main(argv=None) -> int:
             failed.append(f'{name}: launches')
     if 'tmp' in eval_setup:
         eval_setup['tmp'].cleanup()
-    if 'root' in q_setup:
-        shutil.rmtree(q_setup['root'], ignore_errors=True)
+    for setup in (q_setup, r_setup):
+        if 'root' in setup:
+            shutil.rmtree(setup['root'], ignore_errors=True)
     for name in ('j', 'n'):
         if name in results:
             t0 = time.perf_counter()

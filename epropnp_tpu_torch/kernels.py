@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels of ``csrc/``, and the
+package's host-side C++ libraries.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` (one compiler process
 per source, all started together), and the objects are linked into one
@@ -7,6 +8,9 @@ The build runs at first use, from the package's own sources only, into
 ``build/`` beside the package; the file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library never loads.
 A missing compiler or a failed build raises.
+
+:func:`build_host_library` builds a host-side C++ source (``ops/iou3d``,
+the PNG filters of ``utils/image_ops``) with ``g++`` the same way.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
+HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +106,33 @@ def build() -> str:
         f.write('\n'.join(log))
     if failed:
         raise RuntimeError(f'nvcc failed: {failed}\n' + '\n'.join(log))
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+def build_host_library(src: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile the C++ source ``src`` with ``g++`` into a shared library
+    in ``build_dir``, ``lib<stem>_<hash of source and flags>.so``, unless
+    it is already built; returns its path. Raises ``RuntimeError`` naming
+    the compiler when ``g++`` is missing or fails."""
+    h = hashlib.sha256(' '.join(HOST_CXX_FLAGS).encode())
+    with open(src, 'rb') as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(build_dir, f'lib{stem}_{h.hexdigest()[:16]}.so')
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which('g++')
+    if cxx is None:
+        raise RuntimeError(f'g++ not found: {os.path.basename(src)} cannot '
+                           'be built')
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f'{out}.{os.getpid()}.tmp'
+    proc = subprocess.run([cxx, *HOST_CXX_FLAGS, src, '-o', tmp],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f'g++ failed to build {os.path.basename(src)} '
+                           f'({proc.returncode}):\n{proc.stderr}')
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

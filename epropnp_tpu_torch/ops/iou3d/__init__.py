@@ -15,55 +15,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
 
 import numpy as np
 
-from ...kernels import BUILD_DIR
+from ...kernels import BUILD_DIR, build_host_library
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'src',
                     'iou3d.cpp')
-CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 _CRITERIA = {'iou': 0, 'iof1': 1, 'inter': 2}
 _FP = ctypes.POINTER(ctypes.c_float)
-
-
-def library_path() -> str:
-    """Path of the shared library for the current source and flags."""
-    h = hashlib.sha256(' '.join(CXX_FLAGS).encode())
-    with open(_SRC, 'rb') as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f'libiou3d_{h.hexdigest()[:16]}.so')
-
-
-def build() -> str:
-    """Compile ``src/iou3d.cpp`` unless the library is already built;
-    returns its path. Raises ``RuntimeError`` naming the compiler when
-    ``g++`` is missing or fails."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    cxx = shutil.which('g++')
-    if cxx is None:
-        raise RuntimeError('g++ not found: the iou3d library cannot be built')
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    proc = subprocess.run([cxx, *CXX_FLAGS, _SRC, '-o', tmp],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f'g++ failed to build the iou3d library '
-                           f'({proc.returncode}):\n{proc.stderr}')
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the library, with typed entries."""
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(build_host_library(_SRC, BUILD_DIR))
     lib.rotated_iou_matrix.argtypes = [_FP, ctypes.c_int, _FP, ctypes.c_int,
                                        ctypes.c_int, _FP]
     lib.nms_rotated.argtypes = [_FP, _FP, ctypes.c_int, ctypes.c_float,

@@ -1,4 +1,4 @@
-"""LineMOD data pipeline (host-side numpy/cv2) for the 6DoF suite, a copy
+"""LineMOD data pipeline (host-side numpy) for the 6DoF suite, a copy
 of ``epropnp_tpu/sixdof/dataset.py`` whose ``collate`` builds torch
 tensors on a given device.
 
@@ -6,8 +6,10 @@ Produces ``train.Batch`` records: normalized RGB crops, GT coordinate
 maps, loss masks, local-translation targets, poses and crop parameters.
 Preprocessing (dynamic-zoom-in cropping, background substitution,
 coordinate denoising) stays on the host as in the reference
-(EPro-PnP-6DoF/lib/datasets/lm.py:154-346). cv2 is imported by the
-functions that need it (``Sample`` and ``collate`` do not).
+(EPro-PnP-6DoF/lib/datasets/lm.py:154-346). The OpenCV calls of the JAX
+pipeline are ``utils.image_ops``' (the same pixels, bit for bit); cv2 is
+imported only to decode a background image that is neither a PNG nor a
+``.npy`` array (PASCAL VOC's JPEGs).
 
 Layout expected under ``root``:
   ``real_train/<cls>/{rgb/*.png, mask/*.png, coord/*.pkl|npy, pose/*.txt,
@@ -24,6 +26,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.image_ops import (canny, median_blur3, read_png,
+                               resize_linear, resize_nearest, rgb_to_gray)
 from . import ref_constants as ref
 from .config import SixDoFConfig
 
@@ -31,17 +35,16 @@ from .config import SixDoFConfig
 # ------------------------------------------------------------- transforms
 
 def zoom_in(im: np.ndarray, c, s, res: int, channel: int = 3,
-            interpolate=None):
-    """Crop a square of size ``s`` centered at ``c`` and resize to ``res``.
+            interpolate=resize_linear):
+    """Crop a square of size ``s`` centered at ``c`` and resize to ``res``
+    with ``interpolate`` (``image_ops.resize_linear`` or
+    ``resize_nearest``).
 
     Integer-window semantics as the reference (lib/utils/img.py:164-207):
     window = [c - s/2 + 0.5, c + s/2) cast to ints, zero-padded outside the
     image. Returns (patch, c_h, c_w, s) with the int-cast center/size
     actually used.
     """
-    import cv2
-    if interpolate is None:
-        interpolate = cv2.INTER_LINEAR
     c_w, c_h = int(c[0]), int(c[1])
     s, res = int(s), int(res)
     squeeze = False
@@ -57,10 +60,8 @@ def zoom_in(im: np.ndarray, c, s, res: int, channel: int = 3,
         su, sl = max(u, 0), max(l, 0)
         sb, sr = min(b, h), min(r, w)
         patch[su - u:sb - u, sl - l:sr - l] = im[su:sb, sl:sr]
-    out = cv2.resize(patch, (res, res), interpolation=interpolate)
-    if out.ndim == 2 and not squeeze:
-        out = out[..., None]
-    if squeeze and out.ndim == 3:
+    out = interpolate(patch, (res, res))
+    if squeeze:
         out = out[..., 0]
     return out, c_h, c_w, s
 
@@ -95,15 +96,31 @@ def xywh_to_cs_dzi(xywh, s_ratio: float, s_max: Optional[float] = None,
 
 
 def denoise_coor(coor: np.ndarray) -> np.ndarray:
-    """Median-blur coordinate maps along their edges. Reference: lm.py:255-262."""
-    import cv2
-    coor = coor.astype(np.float32)
-    blur = cv2.medianBlur(coor, 3)
-    gray = cv2.cvtColor((np.abs(coor) * 255).clip(0, 255).astype(np.uint8),
-                        cv2.COLOR_RGB2GRAY)
-    edges = cv2.Canny(gray, 20, 100)
+    """Median-blur coordinate maps along their edges. Reference: lm.py:255-262.
+
+    The edges are found in the box of the map's nonzero pixels widened by 2
+    (clipped to the image), the same edges as on the whole map: Canny's
+    gradient there reads only pixels of the box or zeros, and every pixel
+    beyond it has a zero gradient, as Canny takes the outside of the image
+    to have. The median is taken at the edge pixels only (the rest of the
+    blur is never read).
+    """
+    coor = np.asarray(coor, np.float32)
     out = coor.copy()
-    out[edges != 0] = blur[edges != 0]
+    h, w = coor.shape[:2]
+    flat = coor.reshape(h, -1)
+    ys = np.flatnonzero(flat.any(axis=1))
+    if not ys.size:
+        return out
+    y0, y1 = max(ys[0] - 2, 0), min(ys[-1] + 3, h)
+    xs = np.flatnonzero(flat[ys[0]:ys[-1] + 1].any(axis=0).reshape(w, -1)
+                        .any(axis=1))
+    x0, x1 = max(xs[0] - 2, 0), min(xs[-1] + 3, w)
+    box = coor[y0:y1, x0:x1]
+    gray = rgb_to_gray((np.abs(box) * 255).clip(0, 255).astype(np.uint8))
+    ey, ex = np.nonzero(canny(gray, 20, 100))
+    edges = (ey + y0, ex + x0)
+    out[edges] = median_blur3(coor, edges)
     return out
 
 
@@ -138,15 +155,14 @@ def change_bg(rgb: np.ndarray, msk: np.ndarray,
     resize (reference ``load_bg_im``), so it is never anisotropically
     stretched.
     """
-    import cv2
     h, w = rgb.shape[:2]
     bg_h, bg_w = bg_img.shape[:2]
     if h / w <= bg_h / bg_w:
         crop_w, crop_h = bg_w, int(bg_w * h / w)
     else:
         crop_h, crop_w = bg_h, int(bg_h * w / h)
-    bg = cv2.resize(bg_img[:crop_h, :crop_w],
-                    (w, h), interpolation=cv2.INTER_LINEAR)
+    bg = resize_linear(np.ascontiguousarray(bg_img[:crop_h, :crop_w]),
+                       (w, h))
     msk3 = (msk > 0)[..., None]
     return np.where(msk3, rgb, bg)
 
@@ -174,7 +190,6 @@ def build_sample(cfg: SixDoFConfig, obj: str, rgb, coor, msk, pose, box,
                  bg_img: Optional[np.ndarray] = None,
                  denoise: bool = True) -> Sample:
     """Raw arrays -> one training/test sample (reference __getitem__)."""
-    import cv2
     cam_k = ref.CAMERA_MATRIX if cam_k is None else cam_k
     rng = rng or np.random.default_rng()
     pad_ratio = 1.5
@@ -198,7 +213,7 @@ def build_sample(cfg: SixDoFConfig, obj: str, rgb, coor, msk, pose, box,
 
     if coor is not None:
         coor_crop, *_ = zoom_in(coor, c, s, out_res,
-                                interpolate=cv2.INTER_NEAREST)
+                                interpolate=resize_nearest)
         target_coor = norm_coor(coor_crop, min_extents).astype(np.float32)
     else:
         target_coor = np.zeros((out_res, out_res, 3), np.float32)
@@ -245,6 +260,28 @@ def collate(samples: List[Sample], min_extents: Dict[str, np.ndarray],
 
 
 # ------------------------------------------------------------------ dataset
+
+def read_background(path: str) -> np.ndarray:
+    """A background image as (H, W, 3) RGB uint8: a PNG by
+    ``image_ops.read_png``, a ``.npy`` array by numpy, any other format
+    (PASCAL VOC's JPEGs) by cv2, which must then be importable."""
+    if path.endswith('.npy'):
+        return np.load(path)
+    with open(path, 'rb') as f:
+        is_png = f.read(8) == b'\x89PNG\r\n\x1a\n'
+    if is_png:
+        return read_png(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f'background {path}: neither a PNG nor a .npy array, and cv2, '
+            'which would decode it, is not installed') from e
+    img = cv2.imread(path)
+    if img is None:
+        raise RuntimeError(f'background {path}: cv2 cannot read it')
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
 
 class LineMODDataset:
     """Directory-backed LineMOD dataset with per-class annotation caching.
@@ -317,14 +354,11 @@ class LineMODDataset:
         return len(self.annot)
 
     def _load(self, rec):
-        import cv2
         d, stem = rec['dir'], rec['stem']
-        rgb = cv2.cvtColor(
-            cv2.imread(os.path.join(d, 'rgb', stem + '.png')),
-            cv2.COLOR_BGR2RGB)
+        rgb = read_png(os.path.join(d, 'rgb', stem + '.png'))
         msk_path = os.path.join(d, 'mask', stem + '.png')
-        msk = (cv2.imread(msk_path, cv2.IMREAD_GRAYSCALE)
-               if os.path.isfile(msk_path) else None)
+        msk = read_png(msk_path, gray=True) if os.path.isfile(msk_path) \
+            else None
         coor = None
         for ext in ('.npy', '.pkl'):
             p = os.path.join(d, 'coord', stem + ext)
@@ -344,14 +378,13 @@ class LineMODDataset:
                          abs(info['min_z'])], np.float32)
 
     def __getitem__(self, idx) -> Sample:
-        import cv2
         rec = self.annot[idx]
         rgb, coor, msk, pose, box = self._load(rec)
         bg_img = None
         if (self.split == 'train' and self._bg_files and msk is not None
                 and self.rng.random() < self.change_bg_ratio):
-            bg_path = self._bg_files[self.rng.integers(len(self._bg_files))]
-            bg_img = cv2.cvtColor(cv2.imread(bg_path), cv2.COLOR_BGR2RGB)
+            bg_img = read_background(
+                self._bg_files[self.rng.integers(len(self._bg_files))])
         return build_sample(
             self.cfg, rec['cls'], rgb, coor, msk, pose, box,
             self.min_extents(rec['cls']), split=self.split, rng=self.rng,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.cdpn import CDPN
+from ..parallel.prefetch import BackgroundIterator, prefetch_to_device
 from ..utils.checkpoint import (TORCH_SUFFIXES, load_checkpoint,
                                 load_jax_variables, save_checkpoint)
 from ..utils.convert import cdpn_state_dict
@@ -78,11 +79,18 @@ def to_device(batch, device) -> train_lib.Batch:
 
 def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
                resume_from: Optional[str] = None, log_interval: int = 20,
-               seed: int = 0, ckpt_interval: int = 1, device=None,
-               on_step: Optional[Callable] = None):
+               seed: int = 0, prefetch: int = 2, ckpt_interval: int = 1,
+               device=None, on_step: Optional[Callable] = None):
     """Epoch loop over ``dataset``, any object with ``__len__`` and
     ``batches(batch_size, shuffle, seed)`` yielding ``Batch`` records of
     numpy arrays or tensors.
+
+    ``prefetch`` > 0 runs the batch generator on a background thread
+    (``parallel.prefetch.BackgroundIterator``, ``prefetch + 1`` batches
+    ahead) and keeps ``prefetch`` batches on the device ahead of the step
+    (``prefetch_to_device``: pinned, non-blocking copies on a side
+    stream); 0 iterates synchronously. Either way the batches and the
+    steps are the same.
 
     ``on_step(epoch, i, metrics)``, when given, is called after every step
     with the step's metrics (tensors on the device). Returns the state.
@@ -107,6 +115,10 @@ def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
         t0 = time.time()
         batches = dataset.batches(cfg.train.train_batch_size, shuffle=True,
                                   seed=seed + epoch)
+        if prefetch > 0:
+            batches = prefetch_to_device(
+                BackgroundIterator(batches, maxsize=prefetch + 1),
+                depth=prefetch, device=device)
         for i, batch in enumerate(batches):
             metrics = step_fn(state, to_device(batch, device), gen)
             if on_step is not None:

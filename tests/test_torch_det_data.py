@@ -10,6 +10,7 @@ JAX tests' own). No JAX function here is jitted.
 
 import copy
 import os
+import shutil
 import subprocess
 import sys
 
@@ -129,7 +130,7 @@ def test_native_iou3d_build_refuses_without_compiler(monkeypatch, tmp_path):
     """No g++: the build raises and names the compiler; nothing falls back
     to another implementation."""
     monkeypatch.setattr(tnative, 'BUILD_DIR', str(tmp_path))
-    monkeypatch.setattr(tnative.shutil, 'which', lambda name: None)
+    monkeypatch.setattr(shutil, 'which', lambda name: None)
     tnative.load_library.cache_clear()
     try:
         with pytest.raises(RuntimeError, match='g\\+\\+ not found'):

@@ -344,7 +344,14 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.det.pipelines, epropnp_tpu_torch.utils.timer, '
             'epropnp_tpu_torch.tools.train_det, '
             'epropnp_tpu_torch.tools.test_det, '
-            'epropnp_tpu_torch.tools.validate_det_synthetic; '
+            'epropnp_tpu_torch.tools.validate_det_synthetic, '
+            'epropnp_tpu_torch.utils.image_ops, '
+            'epropnp_tpu_torch.sixdof.synthetic, '
+            'epropnp_tpu_torch.parallel.prefetch, '
+            'epropnp_tpu_torch.utils.config_override, '
+            'epropnp_tpu_torch.tools.train_6dof, '
+            'epropnp_tpu_torch.tools.test_6dof, '
+            'epropnp_tpu_torch.tools.validate_6dof_synthetic; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
             'assert "flax" not in sys.modules and "msgpack" not in '
