@@ -28,7 +28,9 @@ b+. K2 through the legacy layout's entry (``rslm_init`` at N=96 with 16
 c. Serving: a full-width CDPN-34 on seeded random weights answers 3
    requests of 32 crops at 256x256 through ``sixdof.test.infer_poses``
    (``init='rslm'``, fused kernels on); each request must launch K1 twice
-   (the proposals' solve and the refine).
+   (the proposals' solve and the refine). Then one request with the bf16
+   backbone (``network.bf16_backbone``, the model ``load_cdpn`` builds),
+   its latency beside the f32 requests'.
 d. The bench problem (``utils.synthetic.make_problem``, a copy of
    ``bench.make_problem``: 6DoF, B=1024, N=512, RSLM init with 64
    proposals, then 10 trust-region LM iterations) through ``LMSolver``,
@@ -40,7 +42,7 @@ e. K3 against its twin (and an f64 twin) at the Det serving shapes
    (L, 9c) stack (a yardstick the port never calls).
 e+. K3's int8 variant (bf16 weight) and bf16 variant at the v1b_serving
    shapes: the stage-3 layer, the stride-2 first block and stage 4, and
-   the int8 variant on the packed FCOS canvas (5 levels, one launch);
+   both on the packed FCOS canvas (5 levels, one launch);
    beside each time its share of the bound and the bf16 product of the
    pre-sampled stack.
 f. K1 at dof 4 with projection bounds in fast mode (the Det solve) against
@@ -80,7 +82,11 @@ m. K3's gradient (``DCNFunction``: the kernel's forward, the
    ``dcn_backward`` torch ops) against torch autograd through the twin (f32
    and f64) at the stage-3 layer, the stride-2 first block and FCOS level
    0 of 6 images at 672x1600; the backward's and forward's times and the
-   backward's peak memory.
+   backward's peak memory. Then with a bf16 map (the stage-3 layer and the
+   stride-2 block) and with the level table (the packed FCOS canvas, f32
+   and bf16), against the twin's autograd in f32 on the same bf16-rounded
+   inputs (8e-3 of the largest entry for a bf16 map, 2.2e-4 in f32; no
+   gradient in the canvas' gaps).
 n. Det training: ``det.main.train_loop`` at ``DetConfig.v1b()`` width with
    ``use_pallas`` (ResNet-101-DCN, 6 images of 1600x672 a step, AMIS 128,
    RSLM 64x16x3, AdamW; f32, TF32 off) on seeded synthetic batches, 6
@@ -89,6 +95,20 @@ n. Det training: ``det.main.train_loop`` at ``DetConfig.v1b()`` width with
    nothing else; then one step profiled by kind. Before it (not counted),
    one reduced step (ResNet-18, 64x64, DCN in the towers) on the card and
    on the CPU in f32 and f64 with the draws replayed.
+s. Det training in bf16: path n with the JAX package's training options
+   (``bf16_backbone``, ``bf16_dense``, ``level_packed_towers``), then with
+   ``remat_dense`` too: 6 steps each (4 timed), every step launching
+   K3-bf16 28 times (56 with remat: the dense forward runs again in the
+   backward), K2 with bounds twice and K1 twice in its training modes;
+   ms a step, images/s, the peaks of step 0 (cuDNN's exhaustive search)
+   and of the timed steps, beside path n's. Before it (not counted), the reduced step with the
+   same options on the card and on the CPU in bf16, held to an f64 run of
+   the same weights with the options off (the card no further from it
+   than 3x the CPU's, + 2e-3).
+t. 6DoF training in bf16: path j with ``network.bf16_backbone``, then
+   with ``network.remat`` too: 10 steps each (8 timed), K1 twice a step;
+   ms a step, samples/s and the peak beside path j's; the reduced step
+   card against CPU as in s.
 o. Det serving from a checkpoint with flip TTA at ``DetConfig.v1b()``:
    phase g's seeded weights written as an mmdet-named ``.pth`` and as a
    flax msgpack file (``utils.convert.det_variables`` and this script's
@@ -121,7 +141,9 @@ q. Det on a dataset: a nuScenes-format tree written from a seed under
    ``DetConfig.v1b()``, batch 6, 4 steps of which the last 2 are timed,
    each launching K2 with bounds twice, K3-f32 36 times and K1 twice in
    its training modes and nothing else; per step the wall, images/s and
-   the host's pipeline + collate time. Evaluation: ``init_detector`` on
+   the host's pipeline + collate time, with the loop's default prefetch
+   (the pipeline on the producer thread), then synchronously
+   (``prefetch=0``) on the same tree. Evaluation: ``init_detector`` on
    the run's ``latest.pt`` (the trained weights bit for bit), then
    ``tools.test_det.evaluate_dataset`` over the 12 val frames in batches
    of 6 with the RSLM samples drawn on the card, plain (K3 36 times and
@@ -153,10 +175,11 @@ r. 6DoF on a dataset, through the CLIs: a LineMOD-format tree written
    path imports cv2; the trees are removed at the end.
 
 Every launch counter is set to 0 just before each path that a user's
-call drives (b+'s entry calls, c, d, g, h, h's bf16 request, j, k, n, o,
-p with each init, q's training, each of its evaluations and its metrics
-check, and r's training, each evaluation and the validation) and read
-just after it. In every path the same
+call drives (b+'s entry calls, c, c's bf16 request, d, g, h, h's bf16
+request, j, k, n, s and t with each option set, o, p with each init, q's
+training with and without the prefetch, each of its evaluations and its
+metrics check, and r's training, each evaluation and the validation) and
+read just after it. In every path the same
 convention holds: the launches of a check of the card against the CPU
 twins made inside the path (c, d, g, h, o, p) are taken back out of its
 counts (``uncounted``), while a profiled repeat of the path's own call
@@ -171,8 +194,10 @@ blocks an SM at the main path's shapes, and each K1/K2 row its bound's
 share of its time (``bound_share``).
 
 ``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
-i, l, m), not the main run (paths c, d, g, h, j, k, n, o, p, q and r), and
-prints no ``ok`` line. ``--only
+i, l, m, and the card-vs-CPU steps 'j card vs CPU', 'n card vs CPU',
+'s card vs CPU', 's remat card vs CPU', 't card vs CPU', 't remat card
+vs CPU'), not the main run (paths c, d, g, h, j, k, n, s, t, o, p, q and
+r), and prints no ``ok`` line. ``--only
 a-groups`` times K1 over its group sizes at the main path's shapes (the
 measurement behind ``lm_kernel.group_size``); it is not part of the full
 run.
@@ -265,6 +290,39 @@ K1_JTJ_REL, K1_POSE_F64_MARGIN = 1e-4, 0.02
 # leaf) from its f64 run, with losses within 4.4e-5 (CPU measurement,
 # tiny_train_cfg with 4 crops).
 TRAIN_LOSS_REL, TRAIN_STATS_REL, TRAIN_F64_FACTOR = 1e-4, 1e-4, 3.0
+# The reduced bf16 steps (paths s and t), card against CPU in bf16: the
+# card's distance to an f64 run of the same weights with the options off
+# at most TRAIN_F64_FACTOR times the CPU bf16 run's, plus this floor (a
+# few bf16 roundings). A bf16 step lies far from f64 on these random
+# models: on the CPU, losses 0.05-0.49 (relative, worst term), BatchNorm
+# statistics 0.02-0.03, gradients 0.66-0.79 and updates 0.69-1.02
+# (relative L2) over 2 seeds of each suite (CPU measurement; rounding of
+# the batch statistics' backward dominates, as in the JAX package).
+TRAIN_BF16_FLOOR = 2e-3
+# Those rules cannot fail on a bf16 step's gradients: a zero gradient lies
+# 1.0 from f64, within 3x the CPU's 0.66-0.91. So the reduced bf16 steps
+# add a direction rule: in each group of leaves (the backbone, each head;
+# the Det's DCN layers, whose gradients K3's backward gives, a group of
+# their own), the card's gradient's cosine to the f64 run's at least the
+# CPU bf16 run's less TRAIN_BF16_COS_MARGIN, and the pooled distance at
+# most TRAIN_F64_FACTOR x the CPU's (+ TRAIN_BF16_FLOOR), over
+# TRAIN_BF16_BATCHES batches for the Det step (a batch's cosine moves by
+# up to 0.26 between the card and the CPU) and TRAIN_BF16_BATCHES_6DOF
+# for the 6DoF step (its batches agree within 0.02, and its CPU runs
+# take ~8 s a batch on the card's host); the first batch is the step
+# above. The CPU's cosines are 0.54-0.93 a group on an H100's host, the
+# card's Det cosines 0.03-0.11 below them, its 6DoF ones within 0.01; a
+# zero, negated or unrelated gradient has 0 or less. Three planted faults
+# made from the card's gradients (its zeroed group, negated, another
+# batch's) must fail it in every run
+# (``tests/test_torch_mixed_precision.py::GradYardstick``, the same rule
+# with JAX's bf16 step in the CPU's place).
+TRAIN_BF16_BATCHES, TRAIN_BF16_BATCHES_6DOF = 10, 4
+TRAIN_BF16_COS_MARGIN = 0.2
+# A bf16 or f64 step can be non-finite (the pose loss's logsumexp
+# backward; the step then skips it, as JAX's does): such a batch is left
+# out of the direction rule, and this many must remain.
+TRAIN_BF16_MIN_BATCHES = 3
 # Training steps of path j, and the K1 launches of each: the init's
 # proposals and the main solve with its JtJ.
 TRAIN_STEPS, TRAIN_K1_PER_STEP = 10, 2
@@ -805,27 +863,26 @@ def calibrate_batchnorm(torch, model, inp):
     model.eval()
 
 
-def serving_requests(torch, device, num_requests=3, bs=32, depth=34,
-                     inp_res=256, out_res=64, rot_filters=256,
-                     trans_filters=256, trans_hidden=4096, seed=0):
-    """Answer ``num_requests`` requests of ``bs`` crops with a CDPN on
-    seeded random weights; returns (latencies in s, poses per request,
-    K1 launches per request, the share of crops whose pose from the last
-    request's model outputs matches the CPU twin path's)."""
-    from epropnp_tpu_torch.models.cdpn import CDPN
+def serving_requests(torch, device, num_requests=3, bs=32, seed=0,
+                     bf16_backbone=False, profile=True):
+    """Answer ``num_requests`` requests of ``bs`` crops with a CDPN-34
+    (``sixdof.main.build_cdpn`` of the default SixDoFConfig, a bf16
+    backbone with ``bf16_backbone``) on seeded random weights; returns
+    (latencies in s, poses per request, K1 launches per request, the share
+    of crops whose pose from the last request's model outputs matches the
+    CPU twin path's)."""
     from epropnp_tpu_torch.ops.pnp import lm_kernel
     from epropnp_tpu_torch.sixdof import test as test_lib
     from epropnp_tpu_torch.sixdof.config import (
-        DataIterConfig, PnPConfig, SixDoFConfig)
+        NetworkConfig, PnPConfig, SixDoFConfig)
+    from epropnp_tpu_torch.sixdof.main import build_cdpn
     from epropnp_tpu_torch.sixdof.train import Batch
 
     torch.manual_seed(seed)
-    feat = inp_res // 32
-    model = CDPN(depth, rot_filters, trans_filters, trans_hidden,
-                 feat_hw=(feat, feat)).to(device).eval()
-    cfg = SixDoFConfig(dataiter=DataIterConfig(inp_res=inp_res,
-                                               out_res=out_res),
+    cfg = SixDoFConfig(network=NetworkConfig(bf16_backbone=bf16_backbone),
                        pnp=PnPConfig(use_pallas=True))
+    inp_res, out_res = cfg.dataiter.inp_res, cfg.dataiter.out_res
+    model = build_cdpn(cfg).to(device).eval()
     cam = torch.tensor(LINEMOD_K, device=device)
     r = np.random.default_rng(seed)
     calibrate_batchnorm(torch, model, torch.tensor(
@@ -863,7 +920,7 @@ def serving_requests(torch, device, num_requests=3, bs=32, depth=34,
             lat.append(time.perf_counter() - t0)
             poses.append((pose, res.pose_est_trans.cpu().numpy()))
             k1_launches.append(lm_kernel.launches - k1_before)
-    if device.type == 'cuda':
+    if device.type == 'cuda' and profile:
         profile_once(torch, lambda: request(batch, box, gen), 'serving')
     return lat, poses, k1_launches, uncounted(lambda: twin_path_agreement(
         torch, model, batch, box, cam, cfg))
@@ -890,17 +947,28 @@ def twin_path_agreement(torch, model, batch, box, cam, cfg, seed=123,
     return float(agree(res[0], res[1], 1e-3, 1.0).mean())
 
 
-def phase_c(torch, device):
-    lat, poses, k1_launches, twin_agree = serving_requests(torch, device)
-    print(f'phase c: share of the 32 crops whose pose from the kernel path '
+def phase_c(torch, device, bf16_backbone=False, num_requests=3,
+            f32_lat=None):
+    """CDPN-34 serving (``bf16_backbone``: path c's bf16 request, the model
+    ``load_cdpn`` builds for ``network.bf16_backbone``, its latency printed
+    beside ``f32_lat``, path c's)."""
+    label = 'path c bf16' if bf16_backbone else 'phase c'
+    lat, poses, k1_launches, twin_agree = serving_requests(
+        torch, device, num_requests, bf16_backbone=bf16_backbone,
+        profile=not bf16_backbone)
+    print(f'{label}: share of the 32 crops whose pose from the kernel path '
           f'matches the CPU twin path: {twin_agree:.4f}')
     assert twin_agree >= 0.9, 'serving: kernel path disagrees with twins'
+    if f32_lat is not None:
+        print(f'{label}: latency ms ' + json.dumps(dict(
+            bf16=[x * 1e3 for x in lat], f32=[x * 1e3 for x in f32_lat])))
     for i, (lat_s, (pose, pose_t), k1) in enumerate(zip(lat, poses,
                                                          k1_launches)):
         rot = pose[:, :, :3]
         orth = np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max()
-        print(f'phase c: request {i}: 32 crops, latency {lat_s * 1e3:.3f} ms,'
-              f' K1 launches {k1}, finite={bool(np.isfinite(pose).all())}, '
+        print(f'{label}: request {i}: 32 crops, latency '
+              f'{lat_s * 1e3:.3f} ms, K1 launches {k1}, '
+              f'finite={bool(np.isfinite(pose).all())}, '
               f'max|RR^T-I|={orth:.2e}')
         assert k1 == 2, 'serving: K1 not launched for proposals and refine'
         assert pose.shape == (32, 3, 4) and pose_t.shape == (32, 3, 4)
@@ -1079,7 +1147,7 @@ E_VARIANT_SHAPES = [  # (n, h, w, c, cout, stride, what, variants)
     (6, 21, 50, 512, 512, 1, 'backbone stage 4 (x2 per request)',
      ('int8', 'bf16')),
     (6, None, None, 256, 256, 1, 'FCOS towers, packed canvas of '
-     'FCOS_LEVELS_672 (x2 per request)', ('int8',)),
+     'FCOS_LEVELS_672 (x2 per request)', ('int8', 'bf16')),
 ]
 
 
@@ -1741,14 +1809,19 @@ class DrawReplay:
     subsample or the Det object sampler, the init's sampler, the AMIS
     proposals) and replays them, cast to the caller's dtype (indices stay
     integers) and device, so that runs on the card and on the CPU, in f32
-    and f64, see the same random numbers."""
+    and f64, see the same random numbers. With ``pose_samples`` the AMIS
+    proposals are replayed whole (``draw_pose_samples``), not as the
+    uniforms and normals they are made of: the von Mises sampler's
+    rejection loop takes as many rounds as the model's concentrations ask,
+    which differ between a bf16 run and an f64 one."""
 
-    def __init__(self, det: bool = False):
+    def __init__(self, det: bool = False, pose_samples: bool = False):
         from epropnp_tpu_torch.models.dense_heads import deform_pnp_head
-        from epropnp_tpu_torch.ops.pnp import distributions
+        from epropnp_tpu_torch.ops.pnp import distributions, epropnp
         from epropnp_tpu_torch.ops.pnp import levenberg_marquardt as lm
         from epropnp_tpu_torch.sixdof import train
-        self.sites = [(distributions, '_draw'), (lm, '_rand'),
+        self.sites = [(epropnp, 'draw_pose_samples') if pose_samples
+                      else (distributions, '_draw'), (lm, '_rand'),
                       (deform_pnp_head, 'draw_object_samples') if det
                       else (train, 'sample_point_indices')]
         self.real = {name: getattr(mod, name) for mod, name in self.sites}
@@ -1773,6 +1846,8 @@ class DrawReplay:
             if name == 'sample_point_indices':
                 device = args[-1]
                 like = None
+            elif name == 'draw_pose_samples':
+                like = args[0].loc
             else:
                 like = args[2]
             if self.replay is None:
@@ -1832,52 +1907,175 @@ def rel_l2(a, b):
     return (num / max(den, 1e-60)) ** 0.5, worst
 
 
-def card_vs_cpu(torch, device, model, snapshot, label, det=False):
+def bf16_direction(runs, group, zeroed, label):
+    """The reduced bf16 steps' direction rule (TRAIN_BF16_COS_MARGIN):
+    ``runs`` is a list over batches of (card, CPU bf16, CPU f64)
+    gradients (name -> array), ``group(name)`` a leaf's group. A batch in
+    which a run's gradient is not finite (the step skips it, as JAX's
+    does) is left out; at least TRAIN_BF16_MIN_BATCHES must remain. Each
+    batch weighs the same: its gradients are scaled by its f64
+    gradient's norm. Checks the card's gradients and fails unless each
+    planted fault (``zeroed`` group, negated, the batch before's) fails
+    the rule; returns the distances, cosines and failing groups of each,
+    and each batch's cosines."""
+    acc, per_batch = {}, []
+
+    def norm(grads):
+        return sum(float(np.sum(v * v)) for v in grads.values()) ** 0.5
+
+    def add(who, grads, f64, scale):
+        for k, f in f64.items():
+            g, f = grads[k] * scale, f * scale
+            a = acc.setdefault((who, group(k)), np.zeros(4))
+            a += (np.sum((g - f) ** 2), np.sum(g * f), np.sum(g * g),
+                  np.sum(f * f))
+    previous = None
+    for i, (card, cpu, f64) in enumerate(runs):
+        finite = {who: all(np.isfinite(v).all() for v in g.values())
+                  for who, g in (('card', card), ('cpu', cpu),
+                                 ('f64', f64))}
+        row = dict(batch=i, finite=finite, norms=dict(
+            card=norm(card), cpu=norm(cpu), f64=norm(f64)))
+        per_batch.append(row)
+        if not all(finite.values()):
+            continue
+        scale = 1.0 / max(row['norms']['f64'], 1e-300)
+        row['cosines'] = {}
+        for who, g in (('card', card), ('cpu', cpu)):
+            row['cosines'][who] = sum(float(np.sum(g[k] * f))
+                                      for k, f in f64.items()) / max(
+                row['norms'][who] * row['norms']['f64'], 1e-300)
+        add('card', card, f64, scale)
+        add('cpu', cpu, f64, scale)
+        add('zeroed', {k: v * 0 if group(k) == zeroed else v
+                       for k, v in card.items()}, f64, scale)
+        add('negated', {k: -v for k, v in card.items()}, f64, scale)
+        if previous is not None:
+            add('unrelated', previous, f64, scale)
+        previous = card
+
+    def rows(who):
+        return {grp: a for (w, grp), a in acc.items() if w == who}
+
+    def distance(who):
+        r = rows(who).values()
+        return (sum(a[0] for a in r) / max(sum(a[3] for a in r),
+                                           1e-300)) ** 0.5
+
+    def cosines(who):
+        return {grp: float(a[1] / max(a[2] * a[3], 1e-300) ** 0.5)
+                for grp, a in rows(who).items()}
+    used = sum('cosines' in r for r in per_batch)
+    print(f'{label}: per batch, finite gradients, global norms and cosines '
+          'to the f64 run: ' + json.dumps(per_batch))
+    assert used >= TRAIN_BF16_MIN_BATCHES, \
+        f'{label}: {used} batches with finite gradients in every run'
+    ref = cosines('cpu')
+    out = dict(batches_used=used)
+    for who in ('card', 'cpu', 'zeroed', 'negated', 'unrelated'):
+        cos = cosines(who)
+        failing = [grp for grp in ref
+                   if not cos[grp] >= ref[grp] - TRAIN_BF16_COS_MARGIN]
+        if not distance(who) <= TRAIN_F64_FACTOR * distance('cpu') \
+                + TRAIN_BF16_FLOOR:
+            failing.append('distance')
+        out[who] = dict(distance=distance(who), cosines=cos,
+                        failing=failing)
+    print(f'{label}: gradients against the f64 run over {used} batches, by '
+          'group (planted faults zeroed / negated / unrelated must fail; '
+          f'rule: cosine within {TRAIN_BF16_COS_MARGIN:g} of the CPU bf16 '
+          f'run\'s, distance {TRAIN_F64_FACTOR:g}x): ' + json.dumps(out))
+    assert not out['card']['failing'], \
+        f'{label}: gradients point away from f64: {out["card"]["failing"]}'
+    for fault in ('zeroed', 'negated', 'unrelated'):
+        assert out[fault]['failing'], \
+            f'{label}: the planted fault {fault!r} passes the direction rule'
+    return out
+
+
+def card_vs_cpu(torch, device, model, snapshot, label, det=False,
+                yardstick=None, group=None, zeroed=None, batches=1):
     """One reduced-size training step of ``model`` on the card and on the
     CPU, f32, TF32 off, the same weights and the same draws, and the CPU in
     f64 as the yardstick of f32 rounding; ``snapshot(model, device)`` runs
     the step. The rules: losses within TRAIN_LOSS_REL of the CPU's,
     BatchNorm statistics within TRAIN_STATS_REL, gradients and updates no
     further from the f64 run than TRAIN_F64_FACTOR times the CPU f32 run
-    (+ 1e-5)."""
+    (+ 1e-5).
+
+    ``yardstick`` = ``(model64, snapshot64)`` (a bf16 step: the same
+    weights in f64 with the bf16 options off) takes the f64 copy's place;
+    then every rule is the yardstick's: the card's losses, BatchNorm
+    statistics, gradients and updates no further from the f64 run than
+    TRAIN_F64_FACTOR times the CPU bf16 run (+ TRAIN_BF16_FLOOR); and
+    :func:`bf16_direction` over ``batches`` batches (``snapshot`` takes
+    the batch's index), by ``group``, ``zeroed`` the group of
+    its planted fault."""
     import copy
     cpu_dev = torch.device('cpu')
-    with DrawReplay(det) as draws:
-        cpu = snapshot(copy.deepcopy(model), cpu_dev)
-        draws.start_replay()
-        card = snapshot(copy.deepcopy(model).to(device), device)
-        draws.start_replay()
-        cpu64 = snapshot(copy.deepcopy(model).double(), cpu_dev)
+
+    def three(i):
+        with DrawReplay(det, pose_samples=yardstick is not None) as draws:
+            cpu = snapshot(copy.deepcopy(model), cpu_dev, i)
+            draws.start_replay()
+            card = snapshot(copy.deepcopy(model).to(device), device, i)
+            draws.start_replay()
+            cpu64 = (snapshot(copy.deepcopy(model).double(), cpu_dev, i)
+                     if yardstick is None else yardstick[1](
+                         copy.deepcopy(yardstick[0]), cpu_dev, i))
+        return cpu, card, cpu64
+    cpu, card, cpu64 = three(0)
     losses = lambda r: {k: v for k, v in r['losses'].items()  # noqa: E731
                         if k.startswith('loss')}
     lc, l32, l64 = losses(card), losses(cpu), losses(cpu64)
     rel = lambda a, b: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)  # noqa: E731,E501
                            for k in b)
     out = dict(losses_card_vs_cpu=rel(lc, l32),
+               losses_card_vs_f64=rel(lc, l64),
                losses_cpu_f32_vs_f64=rel(l32, l64),
                stats_card_vs_cpu=leaf_rel(card['stats'], cpu['stats']),
+               stats_card_vs_f64=leaf_rel(card['stats'], cpu64['stats']),
                stats_cpu_f32_vs_f64=leaf_rel(cpu['stats'], cpu64['stats']))
     for what in ('grads', 'updates'):
         out[f'{what}_card_vs_cpu'] = rel_l2(card[what], cpu[what])
         out[f'{what}_card_vs_f64'] = rel_l2(card[what], cpu64[what])
         out[f'{what}_cpu_f32_vs_f64'] = rel_l2(cpu[what], cpu64[what])
-    print(f'{label}, card vs CPU (f32, TF32 off, same draws); [global, '
-          'worst leaf] relative L2 for gradients and updates: '
-          + json.dumps(out) + f'; rule: losses {TRAIN_LOSS_REL:g} of the '
-          f'CPU\'s, BatchNorm statistics {TRAIN_STATS_REL:g}, gradients and '
-          f'updates no further from the f64 run than {TRAIN_F64_FACTOR:g}x '
-          'the CPU f32 run (+1e-5)')
+    floor = 1e-5 if yardstick is None else TRAIN_BF16_FLOOR
+    run = 'f32' if yardstick is None else 'bf16'
+    print(f'{label}, card vs CPU ({run}, TF32 off, same draws; "cpu_f32" '
+          f'is the CPU {run} run); [global, worst leaf] relative L2 for '
+          'gradients and updates: ' + json.dumps(out) + '; rule: '
+          + (f'losses {TRAIN_LOSS_REL:g} of the CPU\'s, BatchNorm '
+             f'statistics {TRAIN_STATS_REL:g}, gradients and updates'
+             if yardstick is None else 'losses, BatchNorm statistics, '
+             'gradients and updates') + ' no further from the f64 run '
+          f'than {TRAIN_F64_FACTOR:g}x the CPU {run} run (+{floor:g})')
     print(f'{label} losses: card ' + json.dumps(card['losses'])
           + ' CPU ' + json.dumps(cpu['losses']))
-    assert out['losses_card_vs_cpu'] <= TRAIN_LOSS_REL, \
-        f'{label}: losses differ'
-    assert out['stats_card_vs_cpu'] <= TRAIN_STATS_REL, \
-        f'{label}: BatchNorm statistics differ'
+    if yardstick is None:
+        assert out['losses_card_vs_cpu'] <= TRAIN_LOSS_REL, \
+            f'{label}: losses differ'
+        assert out['stats_card_vs_cpu'] <= TRAIN_STATS_REL, \
+            f'{label}: BatchNorm statistics differ'
+    else:
+        for what in ('losses', 'stats'):
+            assert out[f'{what}_card_vs_f64'] <= TRAIN_F64_FACTOR * out[
+                f'{what}_cpu_f32_vs_f64'] + floor, \
+                f'{label}: {what} further from f64 than the CPU\'s'
     for what in ('grads', 'updates'):
         for i, scope in enumerate(('global', 'worst leaf')):
             assert out[f'{what}_card_vs_f64'][i] <= TRAIN_F64_FACTOR * out[
-                f'{what}_cpu_f32_vs_f64'][i] + 1e-5, \
-                f'{label}: {what} ({scope}) further from f64 than f32'
+                f'{what}_cpu_f32_vs_f64'][i] + floor, \
+                f'{label}: {what} ({scope}) further from f64 than {run}'
+    if yardstick is not None:
+        t0 = time.perf_counter()
+        runs = [(card['grads'], cpu['grads'], cpu64['grads'])]
+        for i in range(1, batches):
+            c, g, f = three(i)
+            runs.append((g['grads'], c['grads'], f['grads']))
+        out['direction'] = bf16_direction(runs, group, zeroed, label)
+        print(f'{label}: {batches - 1} more batches in '
+              f'{time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -1891,8 +2089,34 @@ def train_card_vs_cpu(torch, device):
     smain.init_state(cfg, model, seed=3)
     batch = tuple(make_sixdof_batch(3, 4, 64, 16).values())
     return card_vs_cpu(
-        torch, device, model, lambda m, dev: train_step_snapshot(
+        torch, device, model, lambda m, dev, i: train_step_snapshot(
             torch, cfg, m, batch, dev), 'path j: reduced step')
+
+
+def train_bf16_card_vs_cpu(torch, device, remat=False):
+    """Path t's reduced step (``tiny_train_cfg`` with ``bf16_backbone``,
+    and ``remat``), card against CPU in bf16, with path j's weights in
+    f64 and the options off as the yardstick (:func:`card_vs_cpu`)."""
+    import dataclasses
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.utils.synthetic import make_sixdof_batch
+    cfg = tiny_train_cfg()
+    model, _, _ = smain.build_all(cfg, device='cpu')
+    smain.init_state(cfg, model, seed=3)
+    cfg_b = dataclasses.replace(cfg, network=dataclasses.replace(
+        cfg.network, bf16_backbone=True, remat=remat))
+    model_b, _, _ = smain.build_all(cfg_b, device='cpu')
+    model_b.load_state_dict(model.state_dict())
+    batches = [tuple(make_sixdof_batch(3 + i, 4, 64, 16).values())
+               for i in range(TRAIN_BF16_BATCHES_6DOF)]
+    return card_vs_cpu(
+        torch, device, model_b, lambda m, dev, i: train_step_snapshot(
+            torch, cfg_b, m, batches[i], dev),
+        f'path t{" remat" if remat else ""}: reduced bf16 step',
+        yardstick=(model.double(), lambda m, dev, i: train_step_snapshot(
+            torch, cfg, m, batches[i], dev)),
+        group=lambda name: name.split('.')[0], zeroed='backbone',
+        batches=len(batches))
 
 
 def profile_step(torch, fn, wrapped, label):
@@ -1996,11 +2220,13 @@ def profile_train_step(torch, fn):
     return kinds
 
 
-def path_train(torch, device, steps=10, warmup=2, bs=32):
+def path_train(torch, device, steps=10, warmup=2, bs=32, label='path j',
+               network=None):
     """``sixdof.main.train_loop`` at ``SixDoFConfig.epropnp_basic()`` width
     (CDPN-34, 32 crops of 256x256, K1 on) on seeded synthetic batches,
     with its default prefetch: ``steps`` steps, the first ``warmup``
-    untimed."""
+    untimed. ``network``: NetworkConfig fields on top (path t's
+    ``bf16_backbone`` and ``remat``)."""
     import dataclasses
     import tempfile
     from epropnp_tpu_torch.sixdof import main as smain
@@ -2011,17 +2237,20 @@ def path_train(torch, device, steps=10, warmup=2, bs=32):
     cfg = dataclasses.replace(
         base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
         train=dataclasses.replace(base.train, begin_epoch=0, end_epoch=1,
-                                  train_batch_size=bs))
+                                  train_batch_size=bs),
+        network=dataclasses.replace(base.network, **(network or {})))
     t0 = time.perf_counter()
     data = SyntheticSixDoFDataset(steps * bs, 256, 64, seed=0)
-    print(f'path j: {steps * bs} synthetic samples made in '
+    print(f'{label}: {steps * bs} synthetic samples made in '
           f'{time.perf_counter() - t0:.1f} s')
-    stamps, metrics = [], []
+    stamps, metrics, step_peaks = [], [], []
 
     def on_step(epoch, i, m):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in m.items()})
+        step_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as save_dir:
@@ -2029,17 +2258,20 @@ def path_train(torch, device, steps=10, warmup=2, bs=32):
         state = smain.train_loop(cfg, data, save_dir, device=device,
                                  log_interval=steps, on_step=on_step)
         total = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(step_peaks + [torch.cuda.max_memory_allocated() / 2 ** 30])
     for i, m in enumerate(metrics):
-        print(f'path j: step {i}{" (warm-up)" if i < warmup else ""}: '
+        print(f'{label}: step {i}{" (warm-up)" if i < warmup else ""}: '
               + json.dumps({k: round(v, 6) for k, v in m.items()}))
     timed = steps - warmup
     ms = (stamps[-1] - stamps[warmup - 1]) / timed * 1e3
     skipped = int(sum(m['skipped'] for m in metrics))
-    print('path j: ' + json.dumps(dict(
-        steps=steps, timed_steps=timed, ms_per_step=ms,
-        samples_per_s=bs / ms * 1e3, skipped_steps=skipped,
-        loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak)))
+    out = dict(network=network or {}, steps=steps, timed_steps=timed,
+               ms_per_step=ms, samples_per_s=bs / ms * 1e3,
+               skipped_steps=skipped,
+               loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak,
+               peak_mem_step0_gib=step_peaks[0],
+               peak_mem_timed_steps_gib=max(step_peaks[warmup:]))
+    print(f'{label}: ' + json.dumps(out))
     assert len(metrics) == steps, 'train_loop: wrong number of steps'
     assert metrics[0]['skipped'] == 0, 'train_loop: first step skipped'
     assert all(np.isfinite(v) for m in metrics for v in m.values()), \
@@ -2048,7 +2280,7 @@ def path_train(torch, device, steps=10, warmup=2, bs=32):
     smain.init_state(cfg, fresh, seed=0)
     moved = [k for k, p in state.model.named_parameters()
              if not torch.equal(p, dict(fresh.named_parameters())[k])]
-    print(f'path j: {len(moved)} of {len(list(fresh.parameters()))} '
+    print(f'{label}: {len(moved)} of {len(list(fresh.parameters()))} '
           'parameter tensors moved')
     assert moved, 'train_loop: the parameters did not change'
     # one more step, profiled (its launches are outside the counted run)
@@ -2056,9 +2288,24 @@ def path_train(torch, device, steps=10, warmup=2, bs=32):
                                   torch.tensor(LINEMOD_K, device=device))
     batch = smain.to_device(next(data.batches(bs, seed=9)), device)
     gen = torch.Generator(device=device).manual_seed(9)
-    return dict(ms=ms, steps=steps, skipped=skipped,
+    return dict(out, ms=ms, skipped=skipped,
                 profile=lambda: profile_train_step(
                     torch, lambda: step(state, batch, gen)))
+
+
+def path_train_bf16(torch, device, remat, f32):
+    """Path t: path j's training with ``network.bf16_backbone`` (and
+    ``network.remat``), printed beside path j's numbers (``f32``) from the
+    same run."""
+    label = f'path t{" remat" if remat else ""}'
+    out = path_train(torch, device, TRAIN_STEPS, label=label,
+                     network=dict(bf16_backbone=True, remat=remat))
+    keys = ('ms_per_step', 'samples_per_s', 'peak_mem_gib',
+            'peak_mem_step0_gib', 'peak_mem_timed_steps_gib')
+    print(f'{label} beside path j (f32, same run): ' + json.dumps(
+        {k: [out.get(k), (f32 or {}).get(k)] for k in keys}))
+    out.pop('profile')
+    return out
 
 
 def path_fit_identity(torch, device):
@@ -2097,6 +2344,10 @@ DCN_BWD_SHAPES = [  # (n, h, w, c, cout, stride, what)
 # levels) and K1 twice in its training modes.
 DET_TRAIN_STEPS, DET_TRAIN_TIMED = 6, 4
 DET_STEP_LAUNCHES = {'K2-bounds': 2, 'K3-f32': 36, 'K1-train': 2}
+# Path s (bf16 backbone and dense stage, packed towers): K3-bf16 26 times
+# in the backbone and once per FCOS tower on the canvas; twice that with
+# remat_dense, whose backward runs the dense forward again.
+DET_BF16_K3_PER_STEP = 28
 # nuScenes CAM_FRONT-like intrinsics after the sky crop (1600x900 ->
 # 1600x672, 228 rows off the top)
 NUSCENES_K_CROPPED = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 263.5],
@@ -2299,6 +2550,124 @@ def phase_m(torch, device):
         rows.append(row)
         del x, om, weight, bias, ct
         torch.cuda.empty_cache()
+    return rows + phase_m_variants(torch, device)
+
+
+# Phase m's rows with a bf16 map and with a level table (n, h, w, c, cout,
+# stride, map dtype, what; h None: the packed canvas of FCOS_LEVELS_672).
+# The rule: against torch autograd of the twin in f32 on the same
+# (bf16-rounded) inputs, within K3_VARIANT_REL max|ref| for a bf16 map
+# (its gradients of the map and the offsets come back rounded to bf16),
+# DCN_BWD_REL for the f32 level table.
+DCN_BWD_VARIANTS = [
+    (6, 42, 100, 256, 256, 1, 'bf16', 'backbone stage 3, bf16 map'),
+    (6, 84, 200, 256, 256, 2, 'bf16',
+     'backbone stage 3 first block, bf16 map'),
+    (6, None, None, 256, 256, 1, 'f32',
+     'FCOS towers, packed canvas, level table'),
+    (6, None, None, 256, 256, 1, 'bf16',
+     'FCOS towers, packed canvas, level table, bf16 map'),
+]
+
+
+def phase_m_variants(torch, device):
+    """K3's gradient with a bf16 map (the bf16 backbone) and with a level
+    table (the packed FCOS towers, f32 and bf16): ``dcn_forward`` under
+    autograd (``DCNFunction``: the kernel's forward, ``dcn_backward``)
+    against torch autograd of the twin in f32 on the same bf16-rounded
+    inputs (and in f64); the backward's time, bound and extra peak."""
+    from epropnp_tpu_torch.ops import dcn_kernel as k3
+    from epropnp_tpu_torch.ops.level_pack import (
+        pack_levels, plan_level_packing)
+    rows = []
+    names = ('x', 'offset_mask', 'weight', 'bias')
+    for i, (n, h, w, c, cout, stride, dt, what) in enumerate(
+            DCN_BWD_VARIANTS):
+        levels = None
+        if h is None:
+            layout = plan_level_packing(FCOS_LEVELS_672)
+            gen = torch.Generator(device=device).manual_seed(81 + i)
+            canvas = pack_levels([torch.randn((n, lh, lw, c), generator=gen,
+                                              device=device)
+                                  for lh, lw in FCOS_LEVELS_672], layout)
+            x, om, weight = dcn_problem(torch, device, n, None, None, c,
+                                        cout, 1, 80 + i, x=canvas)
+            del canvas
+            levels = layout.regions()
+            h, w = layout.canvas_hw
+            length = n * sum(lh * lw for lh, lw in FCOS_LEVELS_672)
+            out_shape = (length, cout)
+        else:
+            x, om, weight = dcn_problem(torch, device, n, h, w, c, cout,
+                                        stride, 80 + i)
+            ho, wo = k3.output_hw(h, w, stride)
+            length = n * ho * wo
+            out_shape = (n, ho, wo, cout)
+        gen = torch.Generator(device=device).manual_seed(90 + i)
+        bias = torch.randn((cout,), generator=gen, device=device) * 0.1
+        ct = torch.randn(out_shape, generator=gen, device=device)
+        if dt == 'bf16':  # what a bf16 dense stage feeds K3
+            x, om, ct = x.bfloat16(), om.bfloat16(), ct.bfloat16()
+            weight = weight.bfloat16().float()
+        w3 = k3.kernel_weight(weight)
+
+        def grads(fn, cast):
+            leaves = [t.to(cast(t)).clone().requires_grad_()
+                      for t in (x, om, w3, bias)]
+            out = fn(*leaves, stride=stride, levels=levels)
+            return torch.autograd.grad(out, leaves, ct.to(out.dtype))
+
+        g_k = grads(k3.dcn_forward, lambda t: t.dtype)
+        g_32 = grads(k3.dcn_reference, lambda t: torch.float32)
+        g_64 = grads(k3.dcn_reference, lambda t: torch.float64)
+        torch.cuda.synchronize()
+        rel = K3_VARIANT_REL if dt == 'bf16' else DCN_BWD_REL
+        row = dict(shape=[n, h, w, c, cout], stride=stride, map=dt,
+                   levels=len(levels or [0]), what=what, L=length,
+                   grad_dtypes=[str(g.dtype) for g in g_k])
+        for name, a, b32, b64 in zip(names, g_k, g_32, g_64):
+            scale = float(b32.abs().max())
+            row[f'{name}_rel_err'] = float(
+                (a.float() - b32).abs().max()) / scale
+            row[f'{name}_rel_err_f64'] = float(
+                (a.double() - b64).abs().max()) / float(b64.abs().max())
+            assert torch.isfinite(a).all(), f'K3 backward: {name} non-finite'
+        if levels is not None:  # nothing reaches the gaps
+            gaps = layout.mask(device=device)[..., 0] == 0
+            row['gap_grad_max'] = max(float(g_k[0][:, gaps].abs().max()),
+                                      float(g_k[1][:, gaps].abs().max()))
+            assert row['gap_grad_max'] == 0, 'gradient in the canvas gaps'
+        del g_k, g_32, g_64
+        with torch.no_grad():
+            row['backward_ms'] = time_ms(torch, lambda: k3.dcn_backward(
+                x, om, w3, ct, stride, 2.0, levels=levels), warmup=1,
+                iters=5)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            k3.dcn_backward(x, om, w3, ct, stride, 2.0, levels=levels)
+            torch.cuda.synchronize()
+            row['backward_peak_extra_gib'] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        # phase m's count: the two products and ~24 operations per tap and
+        # channel of corner work; each input read and each output written
+        # once, in its own dtype
+        flops = 4 * length * 9 * c * cout + 24 * length * 9 * c
+        nbytes = (2 * x.numel() * x.element_size()
+                  + 2 * om.numel() * om.element_size()
+                  + 2 * 9 * c * cout * 4 + ct.numel() * ct.element_size()
+                  + cout * 4)
+        row['backward_bound_ms'], row['backward_bound_by'] = bound_ms(
+            flops, nbytes)
+        print('phase m: K3 backward ' + json.dumps(row) + f'; rule: '
+              f'max|d| <= {rel:g} max|ref| (f32 autograd of the twin on '
+              'the same inputs)')
+        for name in names:
+            assert row[f'{name}_rel_err'] <= rel, \
+                f'K3 backward: {name} disagrees at {what}'
+        rows.append(row)
+        del x, om, weight, bias, ct
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2352,13 +2721,65 @@ def det_train_card_vs_cpu(torch, device):
     b = make_det_batch(5)
     batch = tuple(b[k] for k in DET_BATCH_FIELDS)
     k3_0 = dcn_kernel.launches
-    out = card_vs_cpu(torch, device, model, lambda m, dev: det_step_snapshot(
-        torch, cfg, m, batch, dev), 'path n: reduced Det step', det=True)
+    out = card_vs_cpu(torch, device, model,
+                      lambda m, dev, i: det_step_snapshot(
+                          torch, cfg, m, batch, dev),
+                      'path n: reduced Det step', det=True)
     out['k3_launches_on_card'] = dcn_kernel.launches - k3_0
     print(f'path n: reduced Det step: {out["k3_launches_on_card"]} K3 '
           'launches on the card')
     assert out['k3_launches_on_card'] > 0, \
         'reduced Det step: K3 not launched on the card'
+    return out
+
+
+def det_train_bf16_card_vs_cpu(torch, device, remat=False):
+    """Path s's reduced step (``tiny_det_cfg`` with ``bf16_backbone``,
+    ``bf16_dense``, ``level_packed_towers``, and ``remat_dense``), card
+    against CPU in bf16, with the same weights in f64 and the options off
+    as the yardstick (:func:`card_vs_cpu`); K3-bf16 must run on the card
+    (the towers' DCNs on the packed canvas)."""
+    import dataclasses
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.ops import dcn_kernel
+    from epropnp_tpu_torch.ops.deform_conv import DeformConv
+    from epropnp_tpu_torch.utils.synthetic import (DET_BATCH_FIELDS,
+                                                   make_det_batch)
+    cfg = tiny_det_cfg()
+    cfg_b = dataclasses.replace(cfg, bf16_backbone=True, bf16_dense=True,
+                                level_packed_towers=True, remat_dense=remat)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = api.build_detector(cfg, **TINY_DET_OVERRIDES)
+    model_b = api.build_detector(cfg_b, **TINY_DET_OVERRIDES)
+    model_b.load_state_dict(model.state_dict())
+    batches = [tuple(make_det_batch(5 + i)[k] for k in DET_BATCH_FIELDS)
+               for i in range(TRAIN_BF16_BATCHES)]
+    dcn = {f'{mn}.{pn}' for mn, mod in model.named_modules()
+           if isinstance(mod, DeformConv) for pn, _ in mod.named_parameters()}
+    assert dcn, 'the reduced Det model has no DCN'
+
+    def group(name):
+        if name in dcn:
+            return 'dcn'
+        if name.startswith('bbox_head.'):
+            return ('bbox_head.detector' if name.startswith(
+                'bbox_head.detector.') else 'bbox_head')
+        return name.split('.')[0]
+    label = f'path s{" remat" if remat else ""}: reduced bf16 Det step'
+    k3_0 = dcn_kernel.launches_bf16
+    out = card_vs_cpu(
+        torch, device, model_b, lambda m, dev, i: det_step_snapshot(
+            torch, cfg_b, m, batches[i], dev), label, det=True,
+        yardstick=(model.double(), lambda m, dev, i: det_step_snapshot(
+            torch, cfg, m, batches[i], dev)), group=group, zeroed='dcn',
+        batches=len(batches))
+    out['k3_bf16_launches_on_card'] = dcn_kernel.launches_bf16 - k3_0
+    print(f'{label}: {out["k3_bf16_launches_on_card"]} K3-bf16 launches '
+          f'on the card over {TRAIN_BF16_BATCHES} batches')
+    assert out['k3_bf16_launches_on_card'] == \
+        2 * (2 if remat else 1) * TRAIN_BF16_BATCHES, \
+        f'{label}: K3-bf16 not launched once per tower (twice with remat)'
     return out
 
 
@@ -2413,12 +2834,16 @@ def det_train_batches(steps, n_img=6):
     return out
 
 
-def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
+def path_det_train(torch, device, steps=DET_TRAIN_STEPS, label='path n',
+                   options=None, launches=DET_STEP_LAUNCHES):
     """``det.main.train_loop`` at ``DetConfig.v1b()`` width with
     ``use_pallas`` (ResNet-101-DCN, FPN, FCOSEmbHead, DeformPnPHead, AMIS
     128 samples, RSLM 64x16x3, LM 10, AdamW) on seeded synthetic batches of
-    6 images of 1600x672, f32 with TF32 off: ``steps`` steps, the last
-    DET_TRAIN_TIMED timed; every step's launches are checked."""
+    6 images of 1600x672, f32 with TF32 off (``options``: DetConfig fields
+    on top, as path s's bf16 and remat): ``steps`` steps, the last
+    DET_TRAIN_TIMED timed; every step's launches are checked against
+    ``launches``. The peak of step 0 (cuDNN's exhaustive search) and that
+    of the timed steps are reported apart."""
     import dataclasses
     import tempfile
     from epropnp_tpu_torch.det import main as dmain
@@ -2427,12 +2852,13 @@ def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
     base = DetConfig.v1b()
     cfg = dataclasses.replace(
         base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
-        train=dataclasses.replace(base.train, epochs=1, batch_size=6))
+        train=dataclasses.replace(base.train, epochs=1, batch_size=6),
+        **(options or {}))
     t0 = time.perf_counter()
     batches = det_train_batches(steps)
-    print(f'path n: {steps} synthetic batches of 6 images made in '
+    print(f'{label}: {steps} synthetic batches of 6 images made in '
           f'{time.perf_counter() - t0:.1f} s')
-    stamps, metrics, per_step = [], [], []
+    stamps, metrics, per_step, peaks = [], [], [], []
     last = dict(launch_counts())
     warmup = steps - DET_TRAIN_TIMED
 
@@ -2443,11 +2869,8 @@ def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
         now = launch_counts()
         per_step.append({k: now[k] - last[k] for k in now})
         last.update(now)
-        if i + 1 == warmup:  # the timed steps' own peak, apart
-            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-            torch.cuda.reset_peak_memory_stats()
-
-    peaks = []
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as save_dir:
@@ -2456,34 +2879,56 @@ def path_det_train(torch, device, steps=DET_TRAIN_STEPS):
                                  save_dir, log_interval=steps, device=device,
                                  on_step=on_step)
         total = time.perf_counter() - t0
-    peak_timed = torch.cuda.max_memory_allocated() / 2 ** 30
-    peak = max(peaks + [peak_timed])
+    peak = max(peaks + [torch.cuda.max_memory_allocated() / 2 ** 30])
     for i, (m, c) in enumerate(zip(metrics, per_step)):
-        print(f'path n: step {i}{" (warm-up)" if i < warmup else ""}: '
+        print(f'{label}: step {i}{" (warm-up)" if i < warmup else ""}: '
               + json.dumps({k: round(v, 6) for k, v in m.items()})
               + ' launches ' + json.dumps({k: v for k, v in c.items() if v}))
     ms = (stamps[-1] - stamps[warmup - 1]) / DET_TRAIN_TIMED * 1e3
     skipped = int(sum(m['skipped'] for m in metrics))
-    print('path n: ' + json.dumps(dict(
-        steps=steps, timed_steps=DET_TRAIN_TIMED, ms_per_step=ms,
-        images_per_s=6 / ms * 1e3, skipped_steps=skipped,
-        first_step_s=stamps[0] - t0,
-        loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak,
-        peak_mem_timed_steps_gib=peak_timed)))
+    out = dict(options=options or {}, steps=steps,
+               timed_steps=DET_TRAIN_TIMED, ms_per_step=ms,
+               images_per_s=6 / ms * 1e3, skipped_steps=skipped,
+               first_step_s=stamps[0] - t0,
+               loop_s_with_build_and_checkpoint=total, peak_mem_gib=peak,
+               peak_mem_step0_gib=peaks[0],
+               peak_mem_timed_steps_gib=max(peaks[warmup:]),
+               launches_per_step=per_step[-1])
+    print(f'{label}: ' + json.dumps(out))
     assert len(metrics) == steps, 'train_loop: wrong number of steps'
     assert all(np.isfinite(v) for m in metrics for v in m.values()), \
         'Det train_loop: a non-finite loss or grad_norm'
     for i, c in enumerate(per_step):
-        others = {k: v for k, v in c.items()
-                  if k not in DET_STEP_LAUNCHES and v}
-        assert all(c[k] == v for k, v in DET_STEP_LAUNCHES.items()) \
-            and not others, f'Det training step {i}: launches {c}'
+        others = {k: v for k, v in c.items() if k not in launches and v}
+        assert all(c[k] == v for k, v in launches.items()) \
+            and not others, f'{label}: training step {i}: launches {c}'
     step = dtrain.make_train_step(cfg)
     batch = dmain.to_device(batches[0], device)
     gen = torch.Generator(device=device).manual_seed(9)
-    return dict(ms=ms, steps=steps, skipped=skipped, peak_gib=peak,
+    return dict(out, ms=ms, skipped=skipped, peak_gib=peak,
                 profile=lambda: profile_det_train_step(
                     torch, lambda: step(state, batch, gen)))
+
+
+def path_det_train_bf16(torch, device, remat, f32):
+    """Path s: path n's training with the JAX package's training options
+    (``bf16_backbone``, ``bf16_dense``, ``level_packed_towers``, with
+    ``remat_dense`` or without), printed beside path n's numbers (``f32``)
+    from the same run."""
+    options = dict(bf16_backbone=True, bf16_dense=True,
+                   level_packed_towers=True, remat_dense=remat)
+    launches = dict(DET_STEP_LAUNCHES, **{'K3-f32': 0})
+    launches = {k: v for k, v in launches.items() if v}
+    launches['K3-bf16'] = DET_BF16_K3_PER_STEP * (2 if remat else 1)
+    label = f'path s{" remat" if remat else ""}'
+    out = path_det_train(torch, device, label=label, options=options,
+                         launches=launches)
+    keys = ('ms_per_step', 'images_per_s', 'peak_mem_step0_gib',
+            'peak_mem_timed_steps_gib', 'launches_per_step')
+    print(f'{label} beside path n (f32, same run): ' + json.dumps(
+        {k: [out.get(k), (f32 or {}).get(k)] for k in keys}))
+    out.pop('profile')
+    return out
 
 
 # ----------------------------------------- serving from weights, evaluation
@@ -3067,13 +3512,17 @@ def dataset_cfg():
                                   batch_size=DATASET_BATCH))
 
 
-def path_det_dataset_train(torch, device, setup):
+def path_det_dataset_train(torch, device, setup, prefetch=2):
     """Path q, training: ``tools.train_det.make_batch_iter`` on
     ``NuScenes3DDataset`` (the reference crop, training flips) into
-    ``det.main.train_loop`` at v1b, batch 6: DATASET_TRAIN_STEPS steps,
-    each launching K2 with bounds twice, K3-f32 36 times and K1 twice in
-    its training modes, and nothing else; per step the wall time,
-    images/s and the host's pipeline + collate time."""
+    ``det.main.train_loop`` at v1b, batch 6, with the loop's default
+    ``prefetch=2`` (the batches made on the producer thread) or, for the
+    synchronous numbers of the same run, ``prefetch=0``:
+    DATASET_TRAIN_STEPS steps, each launching K2 with bounds twice,
+    K3-f32 36 times and K1 twice in its training modes, and nothing else;
+    per step the wall time, images/s and the host's pipeline + collate
+    time a batch (on the producer thread with the prefetch). The
+    prefetch=2 run's ``latest.pt`` is the one the evaluation loads."""
     from epropnp_tpu_torch.det import main as dmain
     from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
     from epropnp_tpu_torch.tools import train_det
@@ -3105,29 +3554,34 @@ def path_det_dataset_train(torch, device, setup):
         per_step.append({k: now[k] - last[k] for k in now})
         last.update(now)
 
-    save_dir = os.path.join(setup['root'], 'run')
+    save_dir = os.path.join(setup['root'], f'run_prefetch{prefetch}')
     t0 = time.perf_counter()
     state = dmain.train_loop(cfg, timed_iter, steps, save_dir,
                              log_interval=steps, device=device,
-                             on_step=on_step)
+                             on_step=on_step, prefetch=prefetch)
     total = time.perf_counter() - t0
     starts = [t0] + stamps[:-1]
+    label = f'path q (prefetch={prefetch})'
+    walls = []
     for i, (m, c) in enumerate(zip(metrics, per_step)):
         wall = stamps[i] - starts[i]
+        walls.append(wall * 1e3)
         timed = i >= steps - DATASET_TRAIN_TIMED
-        print(f'path q: step {i}{"" if timed else " (warm-up)"}: wall '
+        print(f'{label}: step {i}{"" if timed else " (warm-up)"}: wall '
               f'{wall * 1e3:.3f} ms, {DATASET_BATCH / wall:.3f} images/s, '
               f'host pipeline + collate {host_ms[i]:.3f} ms, '
               + json.dumps({k: round(v, 6) for k, v in m.items()})
               + ' launches ' + json.dumps({k: v for k, v in c.items() if v}))
     warm = steps - DATASET_TRAIN_TIMED
     ms = (stamps[-1] - stamps[warm - 1]) / DATASET_TRAIN_TIMED * 1e3
-    print('path q: training ' + json.dumps(dict(
-        steps=steps, timed_steps=DATASET_TRAIN_TIMED, ms_per_step=ms,
-        images_per_s=DATASET_BATCH / ms * 1e3,
-        host_pipeline_collate_ms=host_ms,
-        skipped_steps=int(sum(m['skipped'] for m in metrics)),
-        loop_s_with_checkpoint=total)))
+    out = dict(prefetch=prefetch, steps=steps,
+               timed_steps=DATASET_TRAIN_TIMED, ms_per_step=ms,
+               images_per_s=DATASET_BATCH / ms * 1e3,
+               step_wall_ms_after_the_first=walls[1:],
+               host_pipeline_collate_ms=host_ms,
+               skipped_steps=int(sum(m['skipped'] for m in metrics)),
+               loop_s_with_checkpoint=total)
+    print(f'{label}: training ' + json.dumps(out))
     assert len(metrics) == steps, 'train_loop: wrong number of steps'
     # a step whose gradient is not finite is skipped by design (JAX's
     # rule, det.train.make_train_step); its losses must still be finite,
@@ -3141,10 +3595,11 @@ def path_det_dataset_train(torch, device, setup):
                   if k not in DET_STEP_LAUNCHES and v}
         assert all(c[k] == v for k, v in DET_STEP_LAUNCHES.items()) \
             and not others, f'path q: training step {i}: launches {c}'
-    setup['checkpoint'] = os.path.join(save_dir, 'latest.pt')
-    setup['trained'] = {k: v.detach().cpu()
-                        for k, v in state.model.state_dict().items()}
-    return dict(ms=ms, host_ms=host_ms)
+    if prefetch:
+        setup['checkpoint'] = os.path.join(save_dir, 'latest.pt')
+        setup['trained'] = {k: v.detach().cpu()
+                            for k, v in state.model.state_dict().items()}
+    return dict(out, ms=ms, host_ms=host_ms)
 
 
 def path_det_dataset_eval(torch, device, setup, tta):
@@ -3544,8 +3999,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', default=None,
                         help='comma-separated kernel phases to run alone '
-                             '(a, a-groups, b, b+, e, e+, f, i, l, m); the '
-                             'main run (paths c-r) is skipped')
+                             '(a, a-groups, b, b+, e, e+, f, i, l, m, or a '
+                             'card-vs-CPU step such as "s card vs CPU"); '
+                             'the main run (paths c-t) is skipped')
     only = parser.parse_args(argv).only
     only = None if only is None else set(only.split(','))
     import torch
@@ -3554,13 +4010,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # cuDNN's exhaustive algorithm search for every convolution, set before
-    # the first one (PyTorch caches the algorithm per shape): the default
-    # f32 heuristics run several Det convs as FFT tiling (phase g)
-    torch.backends.cudnn.benchmark = True
-    torch.backends.cudnn.benchmark_limit = 0
+    # the CLIs' settings (TF32 off, cuDNN's exhaustive search), set before
+    # the first convolution: the default f32 heuristics run several Det
+    # convs as FFT tiling (phase g)
+    from epropnp_tpu_torch.utils.cuda_setup import configure_cuda
+    configure_cuda()
     device = torch.device('cuda', 0)
     t_run = time.perf_counter()
 
@@ -3595,7 +4049,13 @@ def main(argv=None) -> int:
                         ('e+', phase_e_variants), ('f', phase_f),
                         ('i', phase_i), ('j card vs CPU', train_card_vs_cpu),
                         ('l', phase_l), ('m', phase_m),
-                        ('n card vs CPU', det_train_card_vs_cpu)):
+                        ('n card vs CPU', det_train_card_vs_cpu),
+                        ('s card vs CPU', det_train_bf16_card_vs_cpu),
+                        ('s remat card vs CPU', lambda t, d:
+                         det_train_bf16_card_vs_cpu(t, d, remat=True)),
+                        ('t card vs CPU', train_bf16_card_vs_cpu),
+                        ('t remat card vs CPU', lambda t, d:
+                         train_bf16_card_vs_cpu(t, d, remat=True))):
         if (only is None and name in OPT_IN_PHASES) or (
                 only is not None and name not in only):
             continue
@@ -3616,6 +4076,9 @@ def main(argv=None) -> int:
     # the main run: each path a caller drives, its counters from 0 just
     # before it and read just after it
     paths = (('c', lambda: phase_c(torch, device)),
+             ('c bf16', lambda: phase_c(torch, device, bf16_backbone=True,
+                                        num_requests=1,
+                                        f32_lat=results.get('c'))),
              ('d', lambda: phase_d(torch, device)),
              ('b+ entry', lambda: path_legacy_entry(torch, device)),
              ('g', lambda: phase_g(torch, device)),
@@ -3624,6 +4087,14 @@ def main(argv=None) -> int:
              ('j', lambda: path_train(torch, device, TRAIN_STEPS)),
              ('k', lambda: path_fit_identity(torch, device)),
              ('n', lambda: path_det_train(torch, device)),
+             ('s', lambda: path_det_train_bf16(torch, device, False,
+                                               results.get('n'))),
+             ('s remat', lambda: path_det_train_bf16(torch, device, True,
+                                                     results.get('n'))),
+             ('t', lambda: path_train_bf16(torch, device, False,
+                                           results.get('j'))),
+             ('t remat', lambda: path_train_bf16(torch, device, True,
+                                                 results.get('j'))),
              ('o', lambda: path_det_checkpoint_tta(torch, device)),
              ('p epnp_device', lambda: path_sixdof_eval(
                  torch, device, 'epnp_device', eval_setup)),
@@ -3631,6 +4102,8 @@ def main(argv=None) -> int:
                                                  eval_setup)),
              ('q train', lambda: path_det_dataset_train(torch, device,
                                                         q_setup)),
+             ('q train sync', lambda: path_det_dataset_train(
+                 torch, device, q_setup, prefetch=0)),
              ('q eval', lambda: path_det_dataset_eval(torch, device, q_setup,
                                                       tta=False)),
              ('q eval tta', lambda: path_det_dataset_eval(
@@ -3680,6 +4153,17 @@ def main(argv=None) -> int:
                 failed.append('n: Det training launches')
         expected = {'q train': {k: v * DATASET_TRAIN_STEPS
                                 for k, v in DET_STEP_LAUNCHES.items()},
+                    'q train sync': {k: v * DATASET_TRAIN_STEPS
+                                     for k, v in DET_STEP_LAUNCHES.items()},
+                    't': {'K1-train': TRAIN_K1_PER_STEP * TRAIN_STEPS},
+                    't remat': {'K1-train': TRAIN_K1_PER_STEP * TRAIN_STEPS},
+                    's': {'K2-bounds': 2 * DET_TRAIN_STEPS,
+                          'K3-bf16': DET_BF16_K3_PER_STEP * DET_TRAIN_STEPS,
+                          'K1-train': 2 * DET_TRAIN_STEPS},
+                    's remat': {'K2-bounds': 2 * DET_TRAIN_STEPS,
+                                'K3-bf16': 2 * DET_BF16_K3_PER_STEP
+                                * DET_TRAIN_STEPS,
+                                'K1-train': 2 * DET_TRAIN_STEPS},
                     'q eval': {k: v * 2 for k, v in
                                DATASET_EVAL_LAUNCHES[False].items()},
                     'q eval tta': {k: v * 2 for k, v in

@@ -33,10 +33,10 @@ from .pipelines import REFERENCE_CROP_BOX, default_pipeline
 
 
 def build_detector(cfg: DetConfig, **overrides) -> EProPnPDet:
-    """The model of ``cfg``, with its serving options mapped as the JAX API
-    maps them (bf16 backbone and dense stage, int8 DCN sampling,
-    level-packed towers). ``remat_dense`` and ``score_type`` concern
-    training only and change nothing here."""
+    """The model of ``cfg``, with its options mapped as the JAX API maps
+    them (bf16 backbone and dense stage, int8 DCN sampling, level-packed
+    towers). ``remat_dense`` and ``score_type`` concern the train step
+    only and change nothing here."""
     return EProPnPDet(
         num_classes=cfg.num_classes, backbone_depth=cfg.backbone_depth,
         embed_dims=cfg.embed_dims, num_heads=cfg.num_heads,
@@ -195,11 +195,9 @@ def init_detector(cfg: DetConfig, checkpoint: Optional[str] = None,
     (``utils.convert.flax_tree_has_dcn_bias``).
 
     The parameters stay f32 under the bf16 serving options. On the card,
-    serve with ``torch.backends.cudnn.benchmark = True`` and
-    ``torch.backends.cudnn.benchmark_limit = 0``: cuDNN's default f32
-    heuristics run several of this model's 3x3 convolutions at a batch of
-    6 frames as FFT tiling, up to ~400 ms per call against ~1 ms for the
-    algorithm an exhaustive search finds (``chip_smoke.py`` phase g).
+    call ``utils.cuda_setup.configure_cuda()`` first, as the CLIs do
+    (cuDNN's default heuristics run several of this model's convolutions
+    as FFT tiling, up to ~400 ms a call).
     """
     device = torch.device('cuda' if device is None else device)
     variables = own = None

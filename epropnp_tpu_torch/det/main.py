@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.prefetch import BackgroundIterator, prefetch_to_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import get_logger
 from . import train as dtrain
@@ -29,12 +30,12 @@ def _device(device) -> torch.device:
 def build_all(cfg: DetConfig, device=None, seed: int = 0):
     """The detector on ``device`` (channels-last weights), its parameters
     the layers' initialisers drawn from ``seed``, and the train step.
-    Returns ``(model, step_fn)``."""
-    if (cfg.bf16_backbone or cfg.bf16_dense or cfg.int8_dcn_gather
-            or cfg.level_packed_towers or cfg.remat_dense):
+    Returns ``(model, step_fn)``. ``int8_dcn_gather`` is refused: the JAX
+    package's int8 DCN contraction is forward only (serving)."""
+    if cfg.int8_dcn_gather:
         raise NotImplementedError(
-            'training with bf16_backbone, bf16_dense, int8_dcn_gather, '
-            'level_packed_towers or remat_dense is not ported')
+            'int8_dcn_gather is serving only: the int8 DCN contraction has '
+            'no gradient (JAX dcn_gather_contract_q is forward only)')
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build_detector(cfg)
@@ -76,12 +77,19 @@ def to_device(batch, device, dtype=torch.float32) -> dtrain.DetBatch:
 
 def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
                save_dir: str, resume_from: Optional[str] = None,
-               log_interval: int = 50, seed: int = 0,
+               log_interval: int = 50, seed: int = 0, prefetch: int = 2,
                ckpt_interval: int = 1, eval_fn=None, eval_interval: int = 1,
                device=None, on_step: Optional[Callable] = None,
                load_torch: Optional[str] = None):
     """``batch_iter_factory(epoch)`` -> an iterator of ``DetBatch`` records
     (numpy arrays or tensors), ``cfg.train.epochs`` epochs.
+
+    ``prefetch`` > 0 advances the factory's iterator on a background
+    thread (``parallel.prefetch.BackgroundIterator``, ``prefetch + 1``
+    batches ahead) and keeps ``prefetch`` batches on the device ahead of
+    the step (``prefetch_to_device``: pinned, non-blocking copies on a
+    side stream), as JAX's ``train_loop`` (:106-111); 0 iterates
+    synchronously. Either way the batches and the steps are the same.
 
     Checkpoints ``checkpoint_{epoch:03d}.pt`` and ``latest.pt`` every
     ``ckpt_interval`` epochs and after the last; ``resume_from`` restores a
@@ -109,7 +117,12 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
     gen.manual_seed(seed + 1)
     for epoch in range(cfg.train.epochs):
         t0 = time.time()
-        for i, batch in enumerate(batch_iter_factory(epoch)):
+        batches = batch_iter_factory(epoch)
+        if prefetch > 0:
+            batches = prefetch_to_device(
+                BackgroundIterator(batches, maxsize=prefetch + 1),
+                depth=prefetch, device=device)
+        for i, batch in enumerate(batches):
             metrics = step_fn(state, to_device(batch, device), gen)
             if on_step is not None:
                 on_step(epoch, i, metrics)

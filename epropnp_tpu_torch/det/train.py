@@ -13,7 +13,11 @@ With ``cfg.pnp.use_pallas`` on CUDA tensors the solves run through K2
 (the RSLM inits of the Monte Carlo forward and of the score solve, with
 the camera's projection bounds) and K1 (the trust-region solves with
 bounds, the first with its JtJ), and every DCN through K3 with its
-backward (``ops.dcn_kernel.DCNFunction``). Single device; the optimizer is
+backward (``ops.dcn_kernel.DCNFunction``). The model's options train as
+the JAX package trains them: a bf16 backbone and dense stage with f32
+parameters and no loss scaling, the level-packed towers, and
+``remat_dense``, which recomputes the dense forward in the backward
+(``models.norm.checkpoint``). Single device; the optimizer is
 :class:`AdamW`, the update of the JAX package's optax chain.
 """
 
@@ -40,6 +44,7 @@ from ..models.losses.monte_carlo_pose_loss import (
     MonteCarloPoseLossState,
     monte_carlo_pose_loss,
 )
+from ..models.norm import checkpoint
 from ..ops.inter_roi_ops import logsoftmax_across_rois
 from ..ops.pnp import (
     AdaptiveHuberPnPCost,
@@ -131,7 +136,13 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
 
     # ---- dense forward, FCOS targets and losses ----
     img_shape = (batch.img.shape[1], batch.img.shape[2])
-    det_outs, key, value = model.det_dense(batch.img, img_shape)
+    if cfg.remat_dense:
+        # recompute the dense activations in the backward instead of
+        # keeping them (JAX det/train.py:132-136; DetConfig.remat_dense)
+        det_outs, key, value = checkpoint(model, model.det_dense,
+                                          batch.img, img_shape)
+    else:
+        det_outs, key, value = model.det_dense(batch.img, img_shape)
     detector = model.bbox_head.detector
     labels, ctr_targets, gt_inds_local = detector.get_targets(
         [o.points for o in det_outs], batch.gt_bboxes, batch.gt_labels.long(),

@@ -9,7 +9,7 @@ run in NCHW inside (a channels-last model keeps them in NHWC memory with no
 copy). Bottleneck blocks of the ``dcn_stages`` use a deformable 3x3
 ``conv2`` (DCNv2, mmcv's bias-free ``ModulatedDeformConv2dPack`` layout),
 the strided first block included, as the Det backbone (R101-DCN).
-``dtype`` (bf16 for serving) is the compute dtype of the stem, the blocks
+``dtype`` (bf16 for serving and training) is the compute dtype of the stem, the blocks
 (BatchNorms included: f32 statistics, bf16 output) and the DCNs; the
 parameters stay f32.
 """

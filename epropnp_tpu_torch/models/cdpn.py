@@ -11,7 +11,7 @@ parameters onto them.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -30,13 +30,20 @@ class CDPNOutputs(NamedTuple):
 
 class CDPN(nn.Module):
     """``feat_hw`` is the backbone feature size (input size / 32), which
-    fixes the trans head's flattened width."""
+    fixes the trans head's flattened width.
+
+    ``backbone_dtype`` (bf16: the JAX package's mixed-precision recipe,
+    ``NetworkConfig.bf16_backbone``) computes the ResNet in that dtype with
+    f32 parameters; its feature map is cast back to the image's dtype, in
+    which the heads (and the PnP downstream) compute. None computes all of
+    it in the image's dtype."""
 
     def __init__(self, depth: int = 34, rot_filters: int = 256,
                  trans_filters: int = 256, trans_hidden: int = 4096,
-                 feat_hw=(8, 8)):
+                 feat_hw=(8, 8), backbone_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.backbone = ResNetBackbone(depth, out_indices=(4,))
+        self.backbone = ResNetBackbone(depth, out_indices=(4,),
+                                       dtype=backbone_dtype)
         feat_c = self.backbone.feat_channels[-1]
         self.rot_head_net = RotHead(feat_c, num_filters=rot_filters)
         self.trans_head_net = TransHead(feat_c, num_filters=trans_filters,
@@ -47,6 +54,7 @@ class CDPN(nn.Module):
         """img: (bs, H, W, 3) NHWC. Call ``eval()`` for inference (BatchNorm
         running statistics, the JAX ``train=False``)."""
         feat, = self.backbone(img)
+        feat = feat.to(img.dtype)
         noc, w2d, scale = self.rot_head_net(feat)
         trans = self.trans_head_net(feat)
         return CDPNOutputs(noc=noc, w2d=w2d, scale=scale, trans=trans)

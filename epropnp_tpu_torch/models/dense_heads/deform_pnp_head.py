@@ -11,7 +11,7 @@ Submodules carry the reference checkpoint's names: ``detector``,
 ``dim/score/scale/velo/attr`` branches, ``cls_emb``,
 ``attention_sampler``, ``obj_query_scale.{i}.scale``, ``pts_trans.{i}``,
 ``x2d_pos_enc`` and ``corr_regs.{i}``. Maps are NHWC. ``dense_dtype``
-(bf16 for serving) runs the dense convs, ``conv_upsampled`` with its GN,
+(bf16 for serving and training) runs the dense convs, ``conv_upsampled`` with its GN,
 the posenc and ``k_proj``/``v_proj`` in that dtype; key and value come
 back in the input's dtype.
 """

@@ -11,12 +11,12 @@ a DCNv2, bias-free as mmcv's unless ``dcn_bias``), the branches
 ``conv_cls``, ``conv_centerness``, ``conv_offset`` and the GN-wrapped
 ``conv_emb``.
 
-Serving options: ``dense_dtype`` (bf16) runs the towers in that dtype and
-casts their outputs back to the input's before the branches;
-``level_packed`` packs the levels into one canvas (``ops.level_pack``), so
-every tower and branch conv runs once and each tower DCN is one K3 launch,
-with GroupNorm per level; ``dcn_int8_gather`` quantizes the tower DCNs'
-sampling to int8.
+Options (serving and training, but the int8 one): ``dense_dtype`` (bf16)
+runs the towers in that dtype and casts their outputs back to the input's
+before the branches; ``level_packed`` packs the levels into one canvas
+(``ops.level_pack``), so every tower and branch conv runs once and each
+tower DCN is one K3 launch, with GroupNorm per level; ``dcn_int8_gather``
+quantizes the tower DCNs' sampling to int8 (serving only).
 """
 
 from __future__ import annotations

@@ -7,11 +7,13 @@ take NHWC images (in training mode the BatchNorms use the batch and move
 their statistics by flax's rule); ``subheads`` runs the per-object stage;
 ``extract_rois`` and ``roi_regr`` the dense auxiliary stage of training.
 
-Serving options (``DetConfig.v1b_serving``): ``backbone_dtype`` computes
-the backbone and FPN in bf16 (parameters f32, the pyramid cast back to the
-image's dtype), ``dense_dtype`` the head's dense stage, ``dcn_int8_gather``
-quantizes every DCN's sampling to int8 and ``level_packed_towers`` runs
-the FCOS towers on one canvas of all levels.
+Options (``DetConfig.v1b_serving``; all but the int8 one train too):
+``backbone_dtype`` computes the backbone and FPN in bf16 (parameters f32,
+the pyramid cast back to the image's dtype), ``dense_dtype`` the head's
+dense stage, ``dcn_int8_gather`` quantizes every DCN's sampling to int8
+(serving only) and ``level_packed_towers`` runs the FCOS towers on one
+canvas of all levels. ``det_dense`` is the dense forward as one callable,
+the part ``DetConfig.remat_dense`` recomputes in the backward.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 top-down upsampling, 3x3 output convs, extra levels from stride-2 convs on
 the last output. Submodules carry mmdet's names: ``lateral_convs.{i}.conv``
 and ``fpn_convs.{i}.conv``, the extra convs appended to ``fpn_convs``.
-``dtype`` (bf16 for serving) is the compute dtype; the parameters stay
+``dtype`` (bf16 for serving and training) is the compute dtype; the parameters stay
 f32.
 """
 

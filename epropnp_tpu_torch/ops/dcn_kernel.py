@@ -33,14 +33,15 @@ towers, stride 1): a list of (y0, x0, h, w) regions; each level samples
 only its own region, and the output is (L, cout) with positions level by
 level, then image, then row-major.
 
-Gradients: the f32 (and, on the CPU, f64) map without a level table goes
-through :class:`DCNFunction`, whose forward is the kernel (or the twin on
-the CPU) and whose backward is :func:`dcn_backward`, plain torch ops
-streamed over chunks of output rows (the counterpart of ``_bwd_chunked``,
+Gradients: the f32 or bf16 map (f64 too on the CPU), with or without a
+level table, goes through :class:`DCNFunction`, whose forward is the
+kernel (or the twin on the CPU) and whose backward is
+:func:`dcn_backward`, plain torch ops in f32 streamed over chunks of
+output rows (the counterpart of ``_bwd_chunked``,
 ``pallas_dcn.py:199-248``; the JAX package's backward is jnp too). The
-bf16, int8 and level-table variants are forward only, as the JAX int8
-path: the wrapper refuses them inputs that require grad while grad is
-enabled.
+int8 map is forward only, as the JAX int8 entry
+(``dcn_gather_contract_q``): the wrapper refuses it inputs that require
+grad while grad is enabled.
 """
 
 from __future__ import annotations
@@ -198,17 +199,16 @@ def dcn_reference(x, offset_mask, weight, bias=None, stride: int = 1,
     return out.reshape(n, ho, wo, cout)
 
 
-def _positions(offset_mask, rows: slice, ho: int, wo: int, stride: int):
-    """Image index and sampling positions of the output rows ``rows`` of
-    ``offset_mask.reshape(-1, 27)``: ``(img (r,), py, px (r, 9))``, in the
-    offsets' dtype."""
-    dt = offset_mask.dtype
-    dev = offset_mask.device
+def _positions(om, rows: slice, ho: int, wo: int, stride: int):
+    """Image index and sampling positions of the output rows ``rows`` of a
+    level's flat (n ho wo, 27) ``om``: ``(img (r,), py, px (r, 9))``, in
+    ``om``'s dtype and level-local coordinates."""
+    dt = om.dtype
+    dev = om.device
     flat = torch.arange(rows.start, rows.stop, device=dev)
     img, rem = flat // (ho * wo), flat % (ho * wo)
     tap = torch.arange(TAPS, device=dev)
-    om = offset_mask.reshape(-1, 3 * TAPS)[rows]
-    off = om[:, :2 * TAPS].reshape(-1, TAPS, 2)
+    off = om[rows, :2 * TAPS].reshape(-1, TAPS, 2)
     py = ((rem // wo) * stride).to(dt)[:, None] + (tap // 3 - 1).to(dt) \
         + off[..., 0]
     px = ((rem % wo) * stride).to(dt)[:, None] + (tap % 3 - 1).to(dt) \
@@ -218,99 +218,142 @@ def _positions(offset_mask, rows: slice, ho: int, wo: int, stride: int):
 
 def dcn_backward(x, offset_mask, weight3, grad_out, stride: int = 1,
                  modulation_scale: float = 2.0,
-                 chunk_rows: int = BWD_CHUNK_ROWS):
-    """Gradients of :func:`dcn_reference` (no level table) with respect to
-    ``x`` (n, h, w, c), the raw ``offset_mask`` (n, ho, wo, 27), the kernel
-    weight ``weight3`` (9, c, cout) and the bias, given ``grad_out`` (n, ho,
-    wo, cout). Plain torch ops in ``x``'s dtype (f32 or f64), on either
-    device, streamed over chunks of ``chunk_rows`` output rows::
+                 chunk_rows: int = BWD_CHUNK_ROWS,
+                 levels: Optional[Sequence[Tuple[int, int, int, int]]] = None):
+    """Gradients of :func:`dcn_reference` with respect to ``x`` (n, h, w,
+    c), the raw ``offset_mask``, the kernel weight ``weight3`` (9, c, cout)
+    and the bias, given ``grad_out`` (the forward's output shape). Plain
+    torch ops, on either device, streamed over chunks of ``chunk_rows``
+    output rows (``_bwd_chunked`` of the JAX package's ``custom_vjp``,
+    ``pallas_dcn.py:199-248``)::
 
-        d_s = grad_out @ W^T        d_W += s^T @ grad_out
-        d_x[corner] += w4 * d_s     d_w4 = <x[corner], d_s>
+        s = sum_corner w4 * x[corner]     d_s = grad_out @ W^T
+        d_W += s^T @ grad_out             d_w4 = <x[corner], d_s>
+        d_x[corner] += w4 * d_s
 
     then ``d_w4`` to the offsets through the bilinear corner weights and to
-    the mask logits through ``sigmoid * modulation_scale``. A corner outside
-    the map has weight 0 and passes no gradient (``bilinear_sample.py``'s
-    rule, which the JAX gradient follows). Returns ``(d_x, d_offset_mask,
-    d_weight3, d_bias)``.
+    the mask logits through ``sigmoid * modulation_scale``. All of it runs
+    in f32 (f64 for an f64 map), whatever the map's dtype (f32 or bf16),
+    the weight's and ``grad_out``'s, with one cast to each input's dtype
+    at the end; ``s`` is the unrounded f32 combine. A corner outside the
+    map (with ``levels``: outside its level's region) has weight 0 and
+    passes no gradient (``bilinear_sample.py``'s rule, which the JAX
+    gradient follows). With ``levels`` (stride 1), ``x`` and
+    ``offset_mask`` are canvases and ``grad_out`` is (L, cout) in the
+    forward's level order; the gradients land in the regions and are 0
+    in the gaps. Returns ``(d_x, d_offset_mask, d_weight3, d_bias)``,
+    ``d_bias`` in f32 (f64).
     """
-    n, h, w, c = x.shape
+    n, hc, wc, c = x.shape
     cout = weight3.shape[-1]
-    dt = x.dtype
-    ho, wo = output_hw(h, w, stride)
-    length = n * ho * wo
-    xf = x.reshape(n * h * w, c)
-    go = grad_out.reshape(length, cout).to(dt)
-    w_flat = weight3.to(dt).reshape(TAPS * c, cout)
-    om = offset_mask.to(dt)
-    d_x = torch.zeros_like(xf)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    dev = x.device
+    xf = x.reshape(n * hc * wc, c)
+    go = grad_out.reshape(-1, cout)
+    w_flat = weight3.to(acc).reshape(TAPS * c, cout)
+    d_x = torch.zeros((n * hc * wc, c), dtype=acc, device=dev)
     d_w = torch.zeros_like(w_flat)
-    d_om = torch.empty((length, 3 * TAPS), dtype=dt, device=x.device)
-    for start in range(0, length, chunk_rows):
-        rows = slice(start, min(length, start + chunk_rows))
-        img, py, px = _positions(om, rows, ho, wo, stride)
-        logit = om.reshape(-1, 3 * TAPS)[rows, 2 * TAPS:]
-        sig = torch.sigmoid(logit)
-        mod = sig * modulation_scale
-        y0, x0 = torch.floor(py), torch.floor(px)
-        wy, wx = py - y0, px - x0
-        cw = [(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx]
-        go_c = go[rows]
-        d_s = (go_c @ w_flat.T).reshape(-1, TAPS, c)
-        s = torch.zeros_like(d_s)
-        d_cw, d_mod = [], torch.zeros_like(mod)
-        for k in range(4):
-            yy, xx = y0 + (k >> 1), x0 + (k & 1)
-            inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
-            row = torch.where(
-                inside, (img[:, None] * h + yy.clamp(0, h - 1).long())
-                * w + xx.clamp(0, w - 1).long(), 0)
-            g = xf[row]                                    # (r, 9, c)
-            wk = torch.where(inside, cw[k] * mod, 0)
-            s += g * wk[..., None]
-            d_x.index_add_(0, row.reshape(-1),
-                           (wk[..., None] * d_s).reshape(-1, c))
-            dw4 = torch.where(inside, (g * d_s).sum(-1), 0)
-            del g
-            d_cw.append(dw4 * mod)
-            d_mod += dw4 * cw[k]
-        d_w += s.reshape(-1, TAPS * c).T @ go_c
-        d_om[rows, 0:2 * TAPS:2] = (1 - wx) * (d_cw[2] - d_cw[0]) \
-            + wx * (d_cw[3] - d_cw[1])
-        d_om[rows, 1:2 * TAPS:2] = (1 - wy) * (d_cw[1] - d_cw[0]) \
-            + wy * (d_cw[3] - d_cw[2])
-        d_om[rows, 2 * TAPS:] = d_mod * modulation_scale * sig * (1 - sig)
-    return (d_x.reshape(x.shape), d_om.reshape(offset_mask.shape).to(
-        offset_mask.dtype), d_w.reshape(weight3.shape).to(weight3.dtype),
-        go.sum(0))
+    if levels is None:
+        ho, wo = output_hw(hc, wc, stride)
+        parts = [((0, 0, hc, wc), stride, ho, wo)]
+        d_om = None
+    else:
+        parts = [(tuple(r), 1, r[2], r[3]) for r in levels]
+        d_om = torch.zeros(offset_mask.shape, dtype=acc, device=dev)
+    out_start = 0
+    for (y_org, x_org, h, w), lvl_stride, ho, wo in parts:
+        om = (offset_mask if levels is None else
+              offset_mask[:, y_org:y_org + h, x_org:x_org + w])
+        om = om.reshape(-1, 3 * TAPS).to(acc)
+        length = n * ho * wo
+        d_om_l = torch.empty((length, 3 * TAPS), dtype=acc, device=dev)
+        for start in range(0, length, chunk_rows):
+            rows = slice(start, min(length, start + chunk_rows))
+            img, py, px = _positions(om, rows, ho, wo, lvl_stride)
+            img_row = img[:, None] * hc
+            if y_org:
+                img_row = img_row + y_org
+            sig = torch.sigmoid(om[rows, 2 * TAPS:])
+            mod = sig * modulation_scale
+            y0, x0 = torch.floor(py), torch.floor(px)
+            wy, wx = py - y0, px - x0
+            cw = [(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx),
+                  wy * wx]
+            go_c = go[out_start + rows.start:out_start + rows.stop].to(acc)
+            d_s = (go_c @ w_flat.T).reshape(-1, TAPS, c)
+            s = torch.zeros_like(d_s)
+            d_cw, d_mod = [], torch.zeros_like(mod)
+            for k in range(4):
+                yy, xx = y0 + (k >> 1), x0 + (k & 1)
+                inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) \
+                    & (xx <= w - 1)
+                col = xx.clamp(0, w - 1).long()
+                if x_org:
+                    col = col + x_org
+                row = torch.where(
+                    inside, (img_row + yy.clamp(0, h - 1).long()) * wc
+                    + col, 0)
+                g = xf[row].to(acc)                        # (r, 9, c)
+                wk = torch.where(inside, cw[k] * mod, 0)
+                s += g * wk[..., None]
+                d_x.index_add_(0, row.reshape(-1),
+                               (wk[..., None] * d_s).reshape(-1, c))
+                dw4 = torch.where(inside, (g * d_s).sum(-1), 0)
+                del g
+                d_cw.append(dw4 * mod)
+                d_mod += dw4 * cw[k]
+            d_w += s.reshape(-1, TAPS * c).T @ go_c
+            d_om_l[rows, 0:2 * TAPS:2] = (1 - wx) * (d_cw[2] - d_cw[0]) \
+                + wx * (d_cw[3] - d_cw[1])
+            d_om_l[rows, 1:2 * TAPS:2] = (1 - wy) * (d_cw[1] - d_cw[0]) \
+                + wy * (d_cw[3] - d_cw[2])
+            d_om_l[rows, 2 * TAPS:] = d_mod * modulation_scale * sig \
+                * (1 - sig)
+        if levels is None:
+            d_om = d_om_l
+        else:
+            d_om[:, y_org:y_org + h, x_org:x_org + w] = d_om_l.reshape(
+                n, h, w, 3 * TAPS)
+        out_start += length
+    return (d_x.reshape(x.shape).to(x.dtype),
+            d_om.reshape(offset_mask.shape).to(offset_mask.dtype),
+            d_w.reshape(weight3.shape).to(weight3.dtype),
+            go.sum(0, dtype=acc))
 
 
 class DCNFunction(torch.autograd.Function):
     """K3 with a gradient: the kernel's forward (the twin on a CPU tensor)
-    and :func:`dcn_backward`. Takes an f32 map (f64 on the CPU), the weight
-    in the kernel's (9, c, cout) layout in the map's dtype, no level
-    table."""
+    and :func:`dcn_backward`. Takes an f32 or bf16 map (f64 too on the
+    CPU), with or without a level table; the weight in the kernel's (9, c,
+    cout) layout and the bias in any float dtype (the parameters'): both
+    are cast to the map's dtype for the forward, and their gradients come
+    back in their own dtype."""
 
     @staticmethod
-    def forward(ctx, x, offset_mask, weight3, bias, stride,
-                modulation_scale):
+    def forward(ctx, x, offset_mask, weight3, bias, stride, modulation_scale,
+                levels):
         ctx.save_for_backward(x, offset_mask, weight3)
         ctx.stride, ctx.modulation_scale = stride, modulation_scale
-        ctx.has_bias = bias is not None
+        ctx.levels = levels
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        w3 = weight3.to(x.dtype)
+        b = None if bias is None else bias.to(x.dtype)
         if x.device.type == 'cuda':
             return dcn_forward_cuda(
                 x.contiguous(), offset_mask.float().contiguous(),
-                weight3.contiguous(), bias, stride, modulation_scale)
-        return dcn_reference(x, offset_mask, weight3, bias, stride,
-                             modulation_scale)
+                w3.contiguous(), b, stride, modulation_scale, levels)
+        return dcn_reference(x, offset_mask, w3, b, stride,
+                             modulation_scale, levels)
 
     @staticmethod
     def backward(ctx, grad_out):
         x, offset_mask, weight3 = ctx.saved_tensors
         d_x, d_om, d_w, d_b = dcn_backward(
             x, offset_mask, weight3, grad_out, ctx.stride,
-            ctx.modulation_scale, chunk_rows=BWD_CHUNK_ROWS)
-        return d_x, d_om, d_w, (d_b if ctx.has_bias else None), None, None
+            ctx.modulation_scale, chunk_rows=BWD_CHUNK_ROWS,
+            levels=ctx.levels)
+        return (d_x, d_om, d_w, None if ctx.bias_dtype is None
+                else d_b.to(ctx.bias_dtype), None, None, None)
 
 
 def _check(name, t, shape, device, dtypes):
@@ -407,24 +450,27 @@ def dcn_forward(x, offset_mask, weight, bias=None, stride: int = 1,
     ``weight`` is mmcv's (cout, c, 3, 3) or the kernel's (9, c, cout).
     On the card the bias is cast to the kernel dtype and the offsets to
     f32. Any other device raises. Where grad is enabled and an input
-    requires it, an f32 map (f64 on the CPU) without a level table goes
-    through :class:`DCNFunction`; the other variants raise.
+    requires it, an f32 or bf16 map (f64 too on the CPU), with or without
+    a level table, goes through :class:`DCNFunction` (the weight and the
+    bias in any float dtype, cast to the map's); the int8 map raises.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, offset_mask, weight, bias)):
         w3 = kernel_weight(weight) if weight.dim() == 4 else weight
-        grad_types = ((torch.float32,) if x.device.type == 'cuda'
-                      else (torch.float32, torch.float64))
-        if levels is not None or x.dtype not in grad_types \
-                or w3.dtype != x.dtype:
+        grad_types = ((torch.float32, torch.bfloat16)
+                      if x.device.type == 'cuda'
+                      else (torch.float32, torch.float64, torch.bfloat16))
+        if x.dtype not in grad_types:
             raise NotImplementedError(
-                'dcn_forward: the bf16, int8 and level-table variants are '
-                'forward only; run them under torch.no_grad()')
+                f'dcn_forward: the {x.dtype} map is forward only (the int8 '
+                'map serves; JAX\'s dcn_gather_contract_q has no gradient); '
+                'run it under torch.no_grad()')
         if x.device.type not in ('cuda', 'cpu'):
             raise ValueError(f'dcn_forward: unsupported device {x.device}')
-        return DCNFunction.apply(x, offset_mask, w3, bias, stride,
-                                 modulation_scale)
+        return DCNFunction.apply(
+            x, offset_mask, w3, bias, stride, modulation_scale,
+            None if levels is None else tuple(map(tuple, levels)))
     if x.device.type == 'cuda':
         w3 = kernel_weight(weight) if weight.dim() == 4 else weight
         cdt = compute_dtype(x.dtype, w3.dtype)

@@ -11,7 +11,9 @@ flax module stores the offsets as (dx, dy) pairs;
 
 The sampling contraction is K3 (``ops.dcn_kernel.dcn_forward``): the CUDA
 kernel on CUDA tensors, its torch twin on CPU tensors; in training, with
-the backward of ``ops.dcn_kernel.DCNFunction``.
+the backward of ``ops.dcn_kernel.DCNFunction``, in f32 or bf16, per level
+or on a canvas of levels (the offset conv, K3's level table and the copy
+of each level's rows into the output canvas all carry the gradient back).
 """
 
 from __future__ import annotations
@@ -75,12 +77,14 @@ class DeformConv(nn.Module):
 
     def _kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight in K3's (9, c, cout) layout and ``dtype``. Where
-        autograd records (training), it is re-laid at every call and
+        autograd records (training), it is re-laid at every call in the
+        parameter's dtype (K3's ``DCNFunction`` casts it to the map's and
+        returns its gradient unrounded, as JAX's f32 kernel gradient) and
         carries the gradient back to ``weight``; otherwise it is re-laid
         once per change of the parameter (its version counter, storage,
         device) or of the dtype."""
         if torch.is_grad_enabled() and self.weight.requires_grad:
-            return kernel_weight(self.weight).to(dtype)
+            return kernel_weight(self.weight)
         key = (self.weight._version, self.weight.data_ptr(),
                self.weight.device, dtype)
         if self._weight3 is None or self._weight3[0] != key:

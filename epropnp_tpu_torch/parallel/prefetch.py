@@ -64,16 +64,18 @@ class BackgroundIterator:
 
 
 def _fields(batch):
-    """A batch's arrays, as tensors (numpy arrays become CPU tensors)."""
-    return [a if isinstance(a, torch.Tensor)
+    """A batch's arrays, as tensors (numpy arrays become CPU tensors); an
+    absent field (None) stays None."""
+    return [a if a is None or isinstance(a, torch.Tensor)
             else torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
 
 
 def prefetch_to_device(batches: Iterable[Any], depth: int = 2,
                        device=None) -> Iterator[Any]:
     """Yield the batches of ``batches`` (tuples or named tuples of numpy
-    arrays or tensors, in order) with every array on ``device`` (the CUDA
-    card unless given), copied ``depth`` batches ahead of the consumer.
+    arrays or tensors, or None for an absent field, in order) with every
+    array on ``device`` (the CUDA card unless given), copied ``depth``
+    batches ahead of the consumer.
 
     On a CUDA device the host arrays are pinned and copied with
     ``non_blocking=True`` on a side stream; before a batch is yielded the
@@ -91,11 +93,13 @@ def prefetch_to_device(batches: Iterable[Any], depth: int = 2,
     def put(batch):
         arrays = _fields(batch)
         if not cuda:
-            return batch, [a.to(device) for a in arrays], None
-        arrays = [a if a.is_cuda or a.is_pinned() else a.pin_memory()
-                  for a in arrays]
+            return batch, [None if a is None else a.to(device)
+                           for a in arrays], None
+        arrays = [a if a is None or a.is_cuda or a.is_pinned()
+                  else a.pin_memory() for a in arrays]
         with torch.cuda.stream(side):
-            moved = [a.to(device, non_blocking=True) for a in arrays]
+            moved = [None if a is None else a.to(device, non_blocking=True)
+                     for a in arrays]
             done = side.record_event()
         return batch, moved, done
 
@@ -105,7 +109,8 @@ def prefetch_to_device(batches: Iterable[Any], depth: int = 2,
             consumer = torch.cuda.current_stream(device)
             consumer.wait_event(done)
             for t in moved:
-                t.record_stream(consumer)
+                if t is not None:
+                    t.record_stream(consumer)
         return (type(batch)(*moved) if hasattr(batch, '_fields')
                 else type(batch)(moved))
 

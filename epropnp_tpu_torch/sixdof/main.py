@@ -34,19 +34,24 @@ def _device(device) -> torch.device:
     return torch.device('cuda' if device is None else device)
 
 
+def build_cdpn(cfg: SixDoFConfig) -> CDPN:
+    """The CDPN of ``cfg`` on the CPU: ``network.back_layers_num``, the
+    trans head's width from ``dataiter.inp_res``, and the backbone in bf16
+    with ``network.bf16_backbone`` (JAX ``sixdof/main.py:31-34``)."""
+    feat = cfg.dataiter.inp_res // 32
+    return CDPN(depth=cfg.network.back_layers_num, feat_hw=(feat, feat),
+                backbone_dtype=torch.bfloat16 if cfg.network.bf16_backbone
+                else None)
+
+
 def build_all(cfg: SixDoFConfig, cam_intrinsic=None, device=None):
     """Model (on ``device``), PnP stack and train step.
 
     Returns ``(model, epropnp, step_fn)``; the optimizer needs the model's
     parameters and comes with the state (:func:`init_state`).
     """
-    net = cfg.network
-    if net.bf16_backbone or net.remat:
-        raise NotImplementedError(
-            'bf16_backbone and remat training are not ported')
     device = _device(device)
-    feat = cfg.dataiter.inp_res // 32
-    model = CDPN(depth=net.back_layers_num, feat_hw=(feat, feat)).to(device)
+    model = build_cdpn(cfg).to(device)
     epropnp = train_lib.build_epropnp(cfg)
     cam = torch.tensor(np.asarray(ref.CAMERA_MATRIX if cam_intrinsic is None
                                   else cam_intrinsic), dtype=torch.float32,
@@ -147,16 +152,18 @@ def load_cdpn(cfg: SixDoFConfig, checkpoint: str, device=None) -> CDPN:
     """A CDPN in eval mode on ``device`` holding a checkpoint's parameters
     and BatchNorm statistics: a JAX checkpoint (flax msgpack, a variables
     or train-state file; ``utils.checkpoint.load_jax_variables``) or one
-    of the port's (``.pt``, ``save_checkpoint`` of a ``TrainState``)."""
+    of the port's (``.pt``, ``save_checkpoint`` of a ``TrainState``).
+    The model is :func:`build_cdpn`'s: with ``network.bf16_backbone`` it
+    evaluates with a bf16 backbone, as JAX's ``test_loop``."""
     device = _device(device)
-    feat = cfg.dataiter.inp_res // 32
-    model = CDPN(depth=cfg.network.back_layers_num, feat_hw=(feat, feat))
+    model = build_cdpn(cfg)
     if checkpoint.endswith(TORCH_SUFFIXES):
         state = train_lib.TrainState(model, train_lib.make_optimizer(
             cfg, model, 1))
         load_checkpoint(checkpoint, state,
                         filter_fn=lambda k: k in ('params', 'batch_stats'))
     else:
+        feat = cfg.dataiter.inp_res // 32
         model.load_state_dict(cdpn_state_dict(
             load_jax_variables(checkpoint), cfg.network.back_layers_num,
             feat_hw=(feat, feat)), strict=True)

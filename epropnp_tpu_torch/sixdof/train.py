@@ -6,7 +6,10 @@ correspondences (x3d = noc * dim, x2d on the crop grid, legacy-softmax
 w2d) -> AMIS Monte Carlo PnP -> the five losses -> RMSprop with the
 non-finite-gradient skip. With ``cfg.pnp.use_pallas`` the PnP solves run
 through K1 (the init's proposals and the main solve, both trust region
-with the crop's projection bounds, the main solve with its JtJ).
+with the crop's projection bounds, the main solve with its JtJ). With
+``network.bf16_backbone`` the CDPN's ResNet computes in bf16 (f32
+parameters, no loss scaling); with ``network.remat`` its forward runs
+again in the backward (``models.norm.checkpoint``).
 
 The optimizer is :class:`RMSprop`, the update of ``optax.rmsprop`` that the
 JAX package uses (eps inside the square root, ``nu`` starting at 0), not
@@ -27,6 +30,7 @@ from ..models.losses.monte_carlo_pose_loss import (
     MonteCarloPoseLossState,
     monte_carlo_pose_loss,
 )
+from ..models.norm import checkpoint
 from ..ops.pnp import (
     AdaptiveHuberPnPCost,
     EProPnP6DoF,
@@ -229,7 +233,10 @@ def compute_losses(model: CDPN, epropnp: EProPnP6DoF, cfg: SixDoFConfig,
                    mc_state: MonteCarloPoseLossState):
     """Forward + all 6DoF losses (reference lib/train.py:136-204) with the
     model in its current mode. Returns ``(loss, aux, new_mc_state)``."""
-    outs = model(batch.inp)
+    # recompute the CDPN activations in the backward (NetworkConfig.remat,
+    # JAX sixdof/train.py:206-208)
+    outs = checkpoint(model, model, batch.inp) if cfg.network.remat \
+        else model(batch.inp)
     bs = batch.inp.shape[0]
     out_res = cfg.dataiter.out_res
     # random 1/8 point subsample (lib/train.py:157-162)

@@ -24,6 +24,7 @@ import torch
 
 from ..sixdof import ref_constants as ref
 from ..sixdof.config import SixDoFConfig
+from ..utils import cuda_setup
 from .train_6dof import smoke_config, with_fused_solves
 
 INITS = ('epnp', 'epnp_device', 'rslm')
@@ -71,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     p = build_parser()
     args = p.parse_args(argv)
     from ..sixdof import main as main_lib

@@ -26,6 +26,7 @@ import torch
 
 from ..det.config import DetConfig
 from ..det.pipelines import imread as read_frame
+from ..utils import cuda_setup
 from ..utils.timer import IterTimers
 
 CONFIGS = ('basic', 'coord_regr', 'v1b', 'smoke')
@@ -118,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     p = build_parser()
     args = p.parse_args(argv)
     if args.data_parallel:

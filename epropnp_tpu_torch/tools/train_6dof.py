@@ -19,6 +19,7 @@ import argparse
 import dataclasses
 
 from ..sixdof.config import PnPConfig, SixDoFConfig
+from ..utils import cuda_setup
 
 EXPS = ('epropnp_basic', 'epropnp_reg_loss', 'epropnp_cdpn_init',
         'epropnp_cdpn_init_long')
@@ -73,6 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     p = build_parser()
     args = p.parse_args(argv)
     if args.data_parallel:

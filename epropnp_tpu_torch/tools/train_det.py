@@ -24,6 +24,7 @@ import numpy as np
 from ..det.config import DetConfig
 from ..det.pipelines import (REFERENCE_CROP_BOX, collate_det_batch,
                              default_pipeline, imread as read_frame)
+from ..utils import cuda_setup
 
 CONFIGS = ('basic', 'coord_regr', 'coord_regr_trainval', 'no_reproj', 'v1b',
            'v1b_220312', 'smoke')
@@ -118,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     p = build_parser()
     args = p.parse_args(argv)
     if args.data_parallel:

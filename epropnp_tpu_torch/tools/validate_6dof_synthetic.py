@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..sixdof.dataset import collate
+from ..utils import cuda_setup
 from .test_6dof import INITS
 from .train_6dof import with_fused_solves
 
@@ -112,6 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     args = build_parser().parse_args(argv)
     from ..sixdof import main as main_lib
     from ..sixdof import synthetic

@@ -31,6 +31,7 @@ from ..det.config import (DetConfig, DetLossWeights, DetPnPConfig,
 from ..det.synthetic import SyntheticDetSceneGenerator
 from ..det.test import make_inference_fn, results_to_numpy
 from ..models.detectors.epropnp_det import EProPnPDet
+from ..utils import cuda_setup
 
 IM_HW = (128, 224)
 NCLS = 3
@@ -328,6 +329,7 @@ def run_study(steps=600, bs=4, pool=64, eval_scenes=16, eval_every=100,
 
 
 def main(argv=None):
+    cuda_setup.configure_cuda()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=600)
     ap.add_argument('--bs', type=int, default=4)

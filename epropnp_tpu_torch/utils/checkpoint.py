@@ -64,6 +64,11 @@ def load_checkpoint(path: str, state,
     """
     data = torch.load(path, map_location='cpu', weights_only=True)
     keep = filter_fn or (lambda key: True)
+    if keep('opt_state') and 'optimizer' not in data:
+        raise ValueError(
+            f'{path} holds no optimizer state (tools.checkpoint_cleaner '
+            "strips it); restore it with a filter_fn that leaves out "
+            "'opt_state'")
     params = {n for n, _ in state.named_parameters()}
 
     def entry(name):

@@ -125,8 +125,9 @@ def test_dcn_bottleneck_stride2_matches_flax():
 
 
 def test_dcn_wrapper_refuses_what_it_does_not_run():
-    """The wrapper refuses other devices, and a gradient through the bf16,
-    int8 and level-table variants (forward only); the f32 map takes one."""
+    """The wrapper refuses other devices, and a gradient through the int8
+    map (forward only, as JAX's ``dcn_gather_contract_q``); the f32 and
+    bf16 maps, with or without a level table, take one."""
     r = np.random.default_rng(0)
     x = torch.from_numpy(r.normal(size=(1, 6, 6, 16)).astype(np.float32))
     om = torch.zeros(1, 6, 6, 27)
@@ -140,15 +141,17 @@ def test_dcn_wrapper_refuses_what_it_does_not_run():
                                    weight.to('meta'))
     w_grad = weight.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match='forward only'):
-        dcn_kernel.dcn_forward(x.bfloat16(), om, w_grad.bfloat16())
-    with pytest.raises(NotImplementedError, match='forward only'):
         q, w_scaled = dcn_kernel.quantize_nhwc(
             x, dcn_kernel.kernel_weight(w_grad))
         dcn_kernel.dcn_forward(q, om, w_scaled)
     with pytest.raises(NotImplementedError, match='forward only'):
-        dcn_kernel.dcn_forward(x, om, w_grad, levels=[(0, 0, 6, 6)])
-    out = dcn_kernel.dcn_forward(x, om, w_grad)
-    assert out.grad_fn is not None
+        q, w_scaled = dcn_kernel.quantize_nhwc(
+            x, dcn_kernel.kernel_weight(w_grad).bfloat16())
+        dcn_kernel.dcn_forward(q, om, w_scaled, levels=[(0, 0, 6, 6)])
+    for out in (dcn_kernel.dcn_forward(x, om, w_grad),
+                dcn_kernel.dcn_forward(x.bfloat16(), om, w_grad),
+                dcn_kernel.dcn_forward(x, om, w_grad, levels=[(0, 0, 6, 6)])):
+        assert out.grad_fn is not None
     with torch.no_grad():  # the twin: zero offsets, mask 0 -> mod = 1
         out = dcn_kernel.dcn_forward(x, om, weight, modulation_scale=2.0)
     plain = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight,

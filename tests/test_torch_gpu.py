@@ -552,6 +552,51 @@ def test_dcn_backward_on_card_matches_autograd_of_the_twin(cuda_device,
         assert (got - ref).abs().max() <= 2.2e-4 * ref.abs().max()
 
 
+@pytest.mark.parametrize('case', ['bf16', 'levels', 'bf16_levels'])
+def test_dcn_backward_variants_on_card_match_autograd_of_the_twin(
+        cuda_device, case):
+    """K3's gradient with a bf16 map (K3-bf16's forward) and with a level
+    table (a canvas of 3 levels), on the card, against torch autograd of
+    the twin in f32 on the same bf16-rounded inputs: within 8e-3 of the
+    largest entry for a bf16 map (its gradients come back in bf16), 2.2e-4
+    in f32 (chip_smoke.py phase m's rules); each call launches its
+    kernel once."""
+    from epropnp_tpu_torch.ops import level_pack
+    r = np.random.default_rng(7)
+    n, c, cout = 2, 32, 16
+    bf16, levels = case.startswith('bf16'), case.endswith('levels')
+    make = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        r.normal(size=s) * scale, dtype=torch.float32, device=cuda_device)
+    if levels:
+        layout = level_pack.plan_level_packing([(9, 14), (5, 7), (3, 4)])
+        x = level_pack.pack_levels([make(n, h, w, c) for h, w in
+                                    layout.shapes], layout)
+        regions = layout.regions()
+        om = make(*x.shape[:3], 27, scale=1.5)
+        ct = make(n * sum(h * w for h, w in layout.shapes), cout)
+    else:
+        x, om, ct = make(n, 13, 17, c), make(n, 13, 17, 27, scale=1.5), \
+            make(n, 13, 17, cout)
+        regions = None
+    weight, bias = make(9, c, cout, scale=0.1), make(cout)
+    if bf16:
+        x, om, ct = x.bfloat16(), om.bfloat16(), ct.bfloat16()
+    grads = []
+    for fn, cast in ((dcn_kernel.dcn_forward, lambda t: t),
+                     (dcn_kernel.dcn_reference, lambda t: t.float())):
+        leaves = [cast(t).clone().requires_grad_()
+                  for t in (x, om, weight, bias)]
+        before = (dcn_kernel.launches_bf16 if bf16 else dcn_kernel.launches)
+        out = fn(*leaves, levels=regions)
+        after = (dcn_kernel.launches_bf16 if bf16 else dcn_kernel.launches)
+        assert after == before + (fn is dcn_kernel.dcn_forward)
+        grads.append(torch.autograd.grad(out, leaves, ct.to(out.dtype)))
+    for got, ref in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref).abs().max() <= (
+            8e-3 if bf16 else 2.2e-4) * ref.abs().max()
+
+
 def test_deform_conv_with_bias_on_card_matches_cpu(cuda_device):
     """A ``DeformConv`` built with a bias (``DetConfig.dcn_bias``) in f32
     training: K3 adds the bias on the card and ``DCNFunction`` returns its

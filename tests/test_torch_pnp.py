@@ -351,7 +351,11 @@ def test_port_never_loads_jax():
             'epropnp_tpu_torch.utils.config_override, '
             'epropnp_tpu_torch.tools.train_6dof, '
             'epropnp_tpu_torch.tools.test_6dof, '
-            'epropnp_tpu_torch.tools.validate_6dof_synthetic; '
+            'epropnp_tpu_torch.tools.validate_6dof_synthetic, '
+            'epropnp_tpu_torch.tools.checkpoint_cleaner, '
+            'epropnp_tpu_torch.tools.bench_dcn_backward, '
+            'epropnp_tpu_torch.utils.cuda_setup, '
+            'epropnp_tpu_torch.models.norm; '
             'assert "jax" not in sys.modules, "jax loaded"; '
             'assert "bench" not in sys.modules; '
             'assert "flax" not in sys.modules and "msgpack" not in '

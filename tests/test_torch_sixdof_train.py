@@ -111,9 +111,11 @@ def _port_state(variables, cfg):
     return ttrain.TrainState(model, ttrain.make_optimizer(cfg, model))
 
 
-def _jax_reference(model, variables, cfg):
+def _jax_reference(model, variables, cfg, steps=STEPS, fresh=False):
     """JAX's 3 steps: per step the point subsample, the AMIS samples, the
-    gradients, the new state and the metrics (one jitted program)."""
+    gradients, the new state and the metrics (one jitted program).
+    ``fresh``: every step starts from the initial state (one step on each
+    of ``steps`` batches)."""
     epropnp = jtrain.build_epropnp(cfg)
     tx = jtrain.make_optimizer(cfg)
     cam = jnp.asarray(CAM_K)
@@ -145,11 +147,11 @@ def _jax_reference(model, variables, cfg):
     state = jtrain.TrainState.create(variables, tx)
     state = state.replace(mc_state=JMCState.create(dtype=jnp.float64))
     step = jax.jit(ref_step)
-    out = []
-    for i in range(STEPS):
+    out, state0 = [], state
+    for i in range(steps):
         batch = jtrain.Batch(*(jnp.asarray(_batch(i)[k]) for k in FIELDS))
         inds, samples, grads, state, metrics = step(
-            state, batch, jax.random.PRNGKey(100 + i))
+            state0 if fresh else state, batch, jax.random.PRNGKey(100 + i))
         out.append(jax.tree_util.tree_map(np.asarray, dict(
             inds=inds, samples=samples, grads=grads, params=state.params,
             batch_stats=state.batch_stats,
