@@ -173,13 +173,41 @@ r. 6DoF on a dataset, through the CLIs: a LineMOD-format tree written
    ``tools.validate_6dof_synthetic.main`` (64 train and 32 test frames, 2
    epochs, ``epnp_device``) on a tree of its own, its JSON line. Neither
    path imports cv2; the trees are removed at the end.
+u. 6DoF data-parallel training (``parallel.mesh``): two processes of this
+   script (``--dp-rank``, the torchrun environment set) form a gloo group
+   on the one card and run ``sixdof.main.train_loop(data_parallel=True)``
+   at path j's width, 32 crops globally (16 a rank) of path j's seeded
+   synthetic batches, 6 steps (the last 4 timed), each rank's step
+   launching K1 twice in its training modes. After every step both
+   ranks' parameters, BatchNorm statistics and ``norm_factor`` are
+   bit-identical (state digests); per rank the ms a step and the peaks,
+   and from one more step (profiled: the card synchronised around the
+   gradient and BatchNorm all-reduces, a barrier before each) their share
+   and that of the wait for the other rank. Then the
+   world of one (``u one``): in this process, 3 steps of the same loop in
+   a group of one over NCCL against two plain runs of the same seed; the
+   group's state no further from the first plain run than twice the
+   second plain run is.
+v. Det data-parallel training: as u at ``DetConfig.v1b()`` (f32,
+   R101-DCN, 1600x672) with the published 6 images a rank (12 globally),
+   each rank's memory capped at 45% of the card, 4 steps (2 timed), each
+   rank's step launching K3-f32 36 times, K2 with bounds twice and K1
+   twice; then ``v one`` as ``u one``. Two ranks on one card are no
+   data-parallel throughput: the all-reduces go through the host.
+w. Det data-parallel evaluation: ``tools.test_det.main --data-parallel``
+   on two ranks over path q's 12 val frames from its ``latest.pt``, plain
+   and with ``--tta`` (each rank 3 frames of each batch of 6: K3 36 times
+   a batch, 72 with TTA); its detections against one single-process run
+   per shard with the same seed (rtol/atol 1e-4), NDS and mAP beside path
+   q's. It runs before path q's tree is removed.
 
 Every launch counter is set to 0 just before each path that a user's
 call drives (b+'s entry calls, c, c's bf16 request, d, g, h, h's bf16
 request, j, k, n, s and t with each option set, o, p with each init, q's
 training with and without the prefetch, each of its evaluations and its
-metrics check, and r's training, each evaluation and the validation) and
-read just after it. In every path the same
+metrics check, r's training, each evaluation and the validation, and u,
+v and w, whose rank processes zero and read their own) and read just
+after it. In every path the same
 convention holds: the launches of a check of the card against the CPU
 twins made inside the path (c, d, g, h, o, p) are taken back out of its
 counts (``uncounted``), while a profiled repeat of the path's own call
@@ -196,8 +224,10 @@ share of its time (``bound_share``).
 ``--only e,e+`` runs just the listed kernel phases (a, b, b+, e, e+, f,
 i, l, m, and the card-vs-CPU steps 'j card vs CPU', 'n card vs CPU',
 's card vs CPU', 's remat card vs CPU', 't card vs CPU', 't remat card
-vs CPU'), not the main run (paths c, d, g, h, j, k, n, s, t, o, p, q and
-r), and prints no ``ok`` line. ``--only
+vs CPU'), not the main run (paths c, d, g, h, j, k, n, s, t, o, p, q, r,
+u, v and w), and prints no ``ok`` line. ``--paths 'u,u one,w'`` runs
+just the listed paths of the main run (w writes path q's tree itself),
+without the kernel phases and without the ``ok`` line. ``--only
 a-groups`` times K1 over its group sizes at the main path's shapes (the
 measurement behind ``lm_kernel.group_size``); it is not part of the full
 run.
@@ -3995,20 +4025,733 @@ def lm_validate_launches():
 
 
 
+# Paths u, v and w: data parallelism (``parallel.mesh``) on two ranks that
+# share the one card over gloo (NCCL refuses two ranks on one device), each
+# rank a process of this script (``--dp-rank``), and the world of one over
+# NCCL in this process. Two ranks on one card are no data-parallel
+# throughput: their all-reduces go through the host.
+DP_RANKS, DP_MEMORY_FRACTION = 2, 0.45
+# u: the 6DoF step at path j's width, 32 crops globally (16 a rank)
+DP_SIXDOF_STEPS, DP_SIXDOF_TIMED, DP_SIXDOF_BATCH = 6, 4, 32
+# v: the Det step at v1b, the published 6 images a rank (12 globally)
+DP_DET_STEPS, DP_DET_TIMED, DP_DET_IMAGES = 4, 2, 6
+# the world of one against plain runs: steps, and the rule's factor on
+# the distance between two plain runs of the same seed
+WORLD_OF_ONE_STEPS, WORLD_OF_ONE_FACTOR = 3, 2.0
+# w: the rank's frames of each batch of 6 against per-shard runs (JAX's
+# rule, tests/test_det_multidevice.py:39-80). The detector it serves is
+# phase g's (``build_det_model``: not chaotic under f32 rounding, whereas
+# path q's trained random R101 is, and two processes' cuDNN searches may
+# pick other algorithms), its FCOS class logits spread by DP_EVAL_CLS_GAIN
+# and shifted so that about DP_EVAL_CANDIDATES points an image pass the
+# 0.04 score threshold on the val frames: a random head's scores sit at
+# its prior, sigmoid(-4.59) x sigmoid(centerness), below it. The random
+# poses of these candidates mostly project outside the frame, so few or
+# none survive as boxes: the rule holds the inference function's outputs
+# on every candidate slot (JAX's "valid slots"), not only the survivors.
+DP_EVAL_RTOL = DP_EVAL_ATOL = 1e-4
+DP_EVAL_CLS_GAIN, DP_EVAL_CANDIDATES = 100.0, 24
+
+
+def state_digest(state) -> str:
+    """sha256 of every tensor of ``state.state_dict()`` (parameters,
+    BatchNorm statistics, the EMA normalisers, the step), in order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for k, v in state.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class RankRecorder:
+    """A rank's record of a training loop: after every step the state's
+    digest, the step's wall time (from the end of the previous step's
+    record, so the digest is outside it), its launches and the memory
+    peak. Nothing is added inside a step; :meth:`profiled_step` times
+    one more step's all-reduces apart."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.state, self.digests, self.step_ms, self.metrics = None, [], [], []
+        self.launches, self.peaks = [], []
+        self.last = dict(launch_counts())
+        self.resume = time.perf_counter()
+
+    def capture(self, init_state):
+        def call(*args, **kwargs):
+            self.state = init_state(*args, **kwargs)
+            return self.state
+        return call
+
+    def on_step(self, epoch, i, m):
+        torch = self.torch
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+        self.step_ms.append((done - self.resume) * 1e3)
+        self.metrics.append({k: float(v) for k, v in m.items()})
+        now = launch_counts()
+        self.launches.append({k: now[k] - self.last[k] for k in now
+                              if now[k] != self.last[k]})
+        self.last.update(now)
+        self.peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        self.digests.append(state_digest(self.state))
+        self.resume = time.perf_counter()
+
+    def profiled_step(self, train_module, step):
+        """One more step (``step()``, after the loop, outside its counts),
+        with the card synchronised around the gradient and BatchNorm
+        all-reduces (``train_module.mean_gradients`` / ``mean_buffers``)
+        and a barrier before each: the step's wall, the all-reduces' time
+        and the time the rank waited there for the other."""
+        import torch.distributed as dist
+        torch, spent = self.torch, {'allreduce_ms': 0.0, 'wait_ms': 0.0}
+
+        def timed(real):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.barrier()
+                t1 = time.perf_counter()
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent['wait_ms'] += (t1 - t0) * 1e3
+                spent['allreduce_ms'] += (time.perf_counter() - t1) * 1e3
+                return out
+            return call
+
+        saved = {n: getattr(train_module, n)
+                 for n in ('mean_gradients', 'mean_buffers')}
+        for name, real in saved.items():
+            setattr(train_module, name, timed(real))
+        try:
+            uncounted(lambda: torch.cuda.synchronize())
+            t0 = time.perf_counter()
+            uncounted(step)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            for name, real in saved.items():
+                setattr(train_module, name, real)
+        return dict(spent, step_ms=wall,
+                    allreduce_share=spent['allreduce_ms'] / wall,
+                    wait_share=spent['wait_ms'] / wall)
+
+    def result(self, timed, profiled):
+        from epropnp_tpu_torch.parallel import mesh
+        import torch.distributed as dist
+        return dict(rank=mesh.rank(), backend=dist.get_backend(),
+                    digests=self.digests, step_ms=self.step_ms,
+                    ms_per_step=float(np.mean(self.step_ms[-timed:])),
+                    profiled=profiled, launches=self.launches,
+                    peaks_gib=self.peaks, metrics=self.metrics)
+
+
+def sixdof_dp_cfg(steps_batch=DP_SIXDOF_BATCH):
+    import dataclasses
+    from epropnp_tpu_torch.sixdof.config import SixDoFConfig
+    base = SixDoFConfig.epropnp_basic()
+    return dataclasses.replace(
+        base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
+        train=dataclasses.replace(base.train, begin_epoch=0, end_epoch=1,
+                                  train_batch_size=steps_batch))
+
+
+def det_dp_cfg(images):
+    import dataclasses
+    from epropnp_tpu_torch.det.config import DetConfig
+    base = DetConfig.v1b()
+    return dataclasses.replace(
+        base, pnp=dataclasses.replace(base.pnp, use_pallas=True),
+        train=dataclasses.replace(base.train, epochs=1, batch_size=images))
+
+
+def rank_sixdof_train(torch, args):
+    """Path u on one rank: ``sixdof.main.train_loop(data_parallel=True)``
+    on its 16 rows of path j's seeded synthetic batches of 32."""
+    import tempfile
+    from epropnp_tpu_torch.parallel import mesh
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.sixdof import train as strain
+    from epropnp_tpu_torch.utils.synthetic import SyntheticSixDoFDataset
+    cfg = sixdof_dp_cfg()
+    data = SyntheticSixDoFDataset(DP_SIXDOF_STEPS * DP_SIXDOF_BATCH, 256,
+                                  64, seed=0)
+    rec = RankRecorder(torch)
+    smain.init_state = rec.capture(smain.init_state)
+    with tempfile.TemporaryDirectory() as save_dir:
+        smain.train_loop(cfg, data, save_dir, data_parallel=True,
+                         log_interval=DP_SIXDOF_STEPS, on_step=rec.on_step)
+    device = next(rec.state.parameters()).device
+    step = strain.make_train_step(
+        strain.build_epropnp(cfg), cfg,
+        torch.tensor(LINEMOD_K, device=device), data_parallel=True)
+    batch = smain.to_device(mesh.take_rows(
+        next(data.batches(DP_SIXDOF_BATCH, seed=9)),
+        mesh.rank_rows(DP_SIXDOF_BATCH)), device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    profiled = rec.profiled_step(
+        strain, lambda: step(rec.state, batch, gen))
+    return rec.result(DP_SIXDOF_TIMED, profiled)
+
+
+def rank_det_train(torch, args):
+    """Path v on one rank: ``det.main.train_loop(data_parallel=True)`` at
+    v1b on its 6 rows of seeded synthetic batches of 12 images."""
+    from epropnp_tpu_torch.det import main as dmain
+    from epropnp_tpu_torch.det import train as dtrain
+    from epropnp_tpu_torch.parallel.mesh import rank_rows, take_rows
+    images = args['images']
+    cfg = det_dp_cfg(DP_RANKS * images)
+    batches = det_train_batches(DP_DET_STEPS, n_img=DP_RANKS * images)
+    rec = RankRecorder(torch)
+    dmain.init_state = rec.capture(dmain.init_state)
+    dmain.train_loop(cfg, lambda epoch, rows: (take_rows(b, rows)
+                                               for b in batches),
+                     DP_DET_STEPS, args['save_dir'], data_parallel=True,
+                     log_interval=DP_DET_STEPS, on_step=rec.on_step)
+    device = next(rec.state.parameters()).device
+    step = dtrain.make_train_step(cfg, data_parallel=True)
+    batch = dmain.to_device(take_rows(
+        batches[0], rank_rows(DP_RANKS * images)), device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    profiled = rec.profiled_step(
+        dtrain, lambda: step(rec.state, batch, gen))
+    return dict(rec.result(DP_DET_TIMED, profiled), images=images)
+
+
+class DetectionCapture:
+    """While entered, every ``det.test`` inference call's ``DetResults``
+    (numpy, all slots) and the top-k's candidate mask (``preds['valid']``:
+    the slots above the FCOS score threshold), in call order."""
+
+    def __init__(self):
+        self.batches = []
+
+    def __enter__(self):
+        from epropnp_tpu_torch.det import test as dtest
+        self.cls, self.real = dtest.DetInference, dtest.DetInference.detections
+        real, batches = self.real, self.batches
+
+        def detections(inference, preds, *args, **kwargs):
+            out = real(inference, preds, *args, **kwargs)
+            batches.append(dict(
+                {k: v.detach().cpu().numpy() for k, v in out._asdict().items()
+                 if v is not None},
+                candidate=preds['valid'].detach().cpu().numpy()))
+            return out
+        self.cls.detections = detections
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.detections = self.real
+
+
+def detections_gap(got, want):
+    """The largest gap over tolerance between two captured runs, on the
+    reference's candidate slots; inf where a mask, label or image index
+    differs."""
+    worst, slots = 0.0, 0
+    if len(got) != len(want):
+        return float('inf'), 0
+    for g, w in zip(got, want):
+        m = w['candidate']
+        if not np.array_equal(g['candidate'], m):
+            return float('inf'), slots
+        for k in ('labels', 'img_inds', 'valid'):
+            if not np.array_equal(g[k][m], w[k][m]):
+                return float('inf'), slots
+        for k in ('bbox_3d', 'bbox_2d', 'scores', 'scores_3d', 'velo',
+                  'attr'):
+            if k in w:
+                a, b = g[k][m], w[k][m]
+                worst = max(worst, float(np.max(
+                    np.abs(a - b) / (DP_EVAL_ATOL + DP_EVAL_RTOL * np.abs(b)),
+                    initial=0.0)))
+        slots += int(m.sum())
+    return worst, slots
+
+
+def rank_det_eval(torch, args):
+    """Path w on one rank: ``tools.test_det.main --data-parallel`` on path
+    q's val frames, the rank's launches around it."""
+    from epropnp_tpu_torch.tools import test_det
+    import pickle
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+    with DetectionCapture() as capture:
+        metrics = test_det.main(args['argv'])
+    torch.cuda.synchronize()
+    from epropnp_tpu_torch.parallel import mesh
+    raw = args['raw'].format(rank=mesh.rank())
+    with open(raw, 'wb') as f:
+        pickle.dump(capture.batches, f)
+    return dict(rank=mesh.rank(), raw=raw, launches={
+        k: v for k, v in launch_counts().items() if v},
+        metrics=None if metrics is None else dict(
+            nd_score=metrics['nd_score'], mean_ap=metrics['mean_ap']))
+
+
+RANK_PATHS = {'u': rank_sixdof_train, 'v': rank_det_train,
+              'w': rank_det_eval}
+
+
+def dp_rank_main(name, args, out_path) -> int:
+    """One rank of a data-parallel path (``--dp-rank``): the group comes
+    from the environment the parent set; the kernels are the parent's
+    build. Writes the path's result as JSON to ``out_path``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from epropnp_tpu_torch.utils.cuda_setup import configure_cuda
+    configure_cuda()
+    from epropnp_tpu_torch import kernels
+    kernels.load_library()
+    torch.cuda.set_device(int(os.environ['LOCAL_RANK'])
+                          % torch.cuda.device_count())
+    torch.cuda.set_per_process_memory_fraction(DP_MEMORY_FRACTION)
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+    out = RANK_PATHS[name](torch, args)
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_spawn(torch, name, args, timeout=600):
+    """Run path ``name`` on DP_RANKS processes of this script (the
+    ``torchrun`` environment set, one card shared) and return their
+    results; prints each rank's lines that name the path, and fails with
+    each rank's log tail if one fails."""
+    import gc
+    import socket
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(REPO, 'build', 'chip_smoke_dp')
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for r in range(DP_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DP_RANKS),
+                   MASTER_ADDR='localhost', MASTER_PORT=port)
+        log = open(os.path.join(out_dir, f'{name}_rank{r}.log'), 'w')
+        res = os.path.join(out_dir, f'{name}_rank{r}.json')
+        if os.path.exists(res):
+            os.remove(res)
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--dp-rank', name,
+             '--dp-args', json.dumps(args), '--dp-out', res], env=env,
+            stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log, res))
+    deadline = time.perf_counter() + timeout
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    results, failed = [], []
+    for r, (p, log, res) in enumerate(procs):
+        with open(log.name) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            if 'data parallel:' in line:
+                print(f'path {name} rank {r}: {line.strip()}')
+        if p.returncode != 0 or not os.path.exists(res):
+            failed.append(r)
+            print(f'path {name} rank {r}: exit {p.returncode}; last lines:\n'
+                  + '\n'.join(lines[-40:]), file=sys.stderr)
+            continue
+        with open(res) as f:
+            results.append(json.load(f))
+    assert not failed, f'path {name}: ranks {failed} failed'
+    return results
+
+
+def check_replicas(label, results, steps):
+    """Every rank's digest after every step equal to rank 0's."""
+    digests = [r['digests'] for r in results]
+    assert all(len(d) == steps for d in digests), \
+        f'{label}: steps {[len(d) for d in digests]}'
+    for i in range(steps):
+        assert len({d[i] for d in digests}) == 1, \
+            f'{label}: the replicas differ after step {i}'
+    print(f'{label}: the {len(results)} replicas are bit-identical after '
+          f'each of the {steps} steps (state digests)')
+
+
+def print_ranks(label, results, timed, per_rank_items):
+    for r in results:
+        for i, (ms, c) in enumerate(zip(r['step_ms'], r['launches'])):
+            print(f'{label} rank {r["rank"]}: step {i}'
+                  f'{"" if i >= len(r["step_ms"]) - timed else " (warm-up)"}'
+                  f': {ms:.3f} ms, peak {r["peaks_gib"][i]:.2f} GiB, '
+                  + json.dumps({k: round(v, 6)
+                                for k, v in r['metrics'][i].items()})
+                  + ' launches ' + json.dumps(c))
+        print(f'{label} rank {r["rank"]}: ' + json.dumps(dict(
+            backend=r['backend'], ms_per_step=r['ms_per_step'],
+            items_per_s_per_rank=per_rank_items / r['ms_per_step'] * 1e3,
+            profiled_step=r['profiled'],
+            peak_step0_gib=r['peaks_gib'][0],
+            peak_timed_gib=max(r['peaks_gib'][-timed:]))))
+
+
+def rank_launch_totals(results):
+    total = {}
+    for r in results:
+        for c in r['launches']:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def path_dp_sixdof(torch, device):
+    """Path u: ``sixdof.main.train_loop(data_parallel=True)`` on 2 ranks
+    over gloo on the one card at ``epropnp_basic`` width (CDPN-34, 32 crops
+    of 256x256 globally, 16 a rank, AMIS 512 x 4, RMSprop, K1 on), 6
+    steps on path j's seeded synthetic batches (the last 4 timed): the
+    replicas bit-identical after every step; per rank the ms a step, the
+    peaks, and from one more step (profiled) the share of the all-reduces
+    and of the wait before them; each rank's step launching K1 twice in
+    its training modes and nothing else."""
+    results = dp_spawn(torch, 'u', {})
+    label = 'path u'
+    check_replicas(label, results, DP_SIXDOF_STEPS)
+    print_ranks(label, results, DP_SIXDOF_TIMED,
+                DP_SIXDOF_BATCH // DP_RANKS)
+    for r in results:
+        assert r['backend'] == 'gloo', r['backend']
+        for i, c in enumerate(r['launches']):
+            assert c == {'K1-train': TRAIN_K1_PER_STEP}, \
+                f'{label} rank {r["rank"]} step {i}: launches {c}'
+    return dict(rank_launches=rank_launch_totals(results),
+                ms=float(np.mean([r['ms_per_step'] for r in results])))
+
+
+def path_dp_det(torch, device):
+    """Path v: ``det.main.train_loop(data_parallel=True)`` on 2 ranks over
+    gloo at ``DetConfig.v1b()`` (f32, R101-DCN, 1600x672), 6 images a rank
+    (12 globally), each rank's memory capped at DP_MEMORY_FRACTION of the
+    card (cuDNN's exhaustive search then skips the algorithms whose
+    workspace does not fit): 4 steps (the last 2 timed), the replicas
+    bit-identical after every step, each rank's step launching K3-f32 36
+    times, K2 with bounds twice and K1 twice in its training modes."""
+    save_dir = os.path.join(REPO, 'build', 'chip_smoke_dp', 'v_run')
+    results = dp_spawn(torch, 'v', dict(images=DP_DET_IMAGES,
+                                        save_dir=save_dir))
+    shutil.rmtree(save_dir, ignore_errors=True)
+    label = 'path v'
+    check_replicas(label, results, DP_DET_STEPS)
+    print_ranks(label, results, DP_DET_TIMED, DP_DET_IMAGES)
+    for r in results:
+        for i, c in enumerate(r['launches']):
+            assert c == DET_STEP_LAUNCHES, \
+                f'{label} rank {r["rank"]} step {i}: launches {c}'
+    return dict(rank_launches=rank_launch_totals(results),
+                ms=float(np.mean([r['ms_per_step'] for r in results])))
+
+
+def state_gap(a, b) -> float:
+    """The largest ``max|a - b| / max|b|`` over the floating tensors of two
+    state dicts."""
+    gap = 0.0
+    for k, v in b.items():
+        if v.is_floating_point():
+            scale = max(float(v.abs().max()), 1e-30) if v.numel() else 1.0
+            gap = max(gap, float((a[k] - v).abs().max()) / scale
+                      if v.numel() else 0.0)
+    return gap
+
+
+def path_world_of_one(torch, device, suite):
+    """The world of one: in this process, ``train_loop(data_parallel=True)``
+    in a group of one (``init_data_parallel`` without the torchrun
+    environment: NCCL, every collective over one rank) for
+    WORLD_OF_ONE_STEPS steps, against two plain runs of the same seed on
+    the same batches. After every step the data-parallel state lies no
+    further from the nearer plain run's than WORLD_OF_ONE_FACTOR times the
+    two plain runs lie apart (bit-equal to one where they agree bit for
+    bit): K3's backward and the 6DoF gathers' backward scatter by atomics,
+    so two plain runs need not agree bit for bit, and the random models'
+    steps amplify the difference from step to step."""
+    import tempfile
+    import torch.distributed as dist
+    from epropnp_tpu_torch.det import main as dmain
+    from epropnp_tpu_torch.parallel.mesh import take_rows
+    from epropnp_tpu_torch.sixdof import main as smain
+    from epropnp_tpu_torch.utils.synthetic import SyntheticSixDoFDataset
+    label = f'path {suite} one'
+    main = smain if suite == 'u' else dmain
+    runs, backend = [], None
+    real_init = main.init_state
+    for dp in (False, False, True):
+        held, steps = {}, []
+
+        def init_state(*args, **kwargs):
+            held['state'] = real_init(*args, **kwargs)
+            return held['state']
+
+        def on_step(epoch, i, m):
+            steps.append({k: v.detach().cpu().clone() for k, v in
+                          held['state'].state_dict().items()})
+
+        main.init_state = init_state
+        try:
+            with tempfile.TemporaryDirectory() as save_dir:
+                if suite == 'u':
+                    data = SyntheticSixDoFDataset(
+                        WORLD_OF_ONE_STEPS * DP_SIXDOF_BATCH, 256, 64,
+                        seed=0)
+                    smain.train_loop(
+                        sixdof_dp_cfg(), data, save_dir, data_parallel=dp,
+                        device=device, log_interval=WORLD_OF_ONE_STEPS,
+                        on_step=on_step)
+                else:
+                    batches = det_train_batches(WORLD_OF_ONE_STEPS)
+                    dmain.train_loop(
+                        det_dp_cfg(6),
+                        (lambda epoch, rows: (take_rows(b, rows)
+                                              for b in batches)) if dp else
+                        (lambda epoch: iter(batches)),
+                        WORLD_OF_ONE_STEPS, save_dir, data_parallel=dp,
+                        device=device, log_interval=WORLD_OF_ONE_STEPS,
+                        on_step=on_step)
+        finally:
+            main.init_state = real_init
+        if dp:
+            backend = dist.get_backend()
+            assert dist.get_world_size() == 1
+            dist.destroy_process_group()
+        runs.append(steps)
+        held.clear()
+    plain_gap = [state_gap(b, a) for a, b in zip(runs[0], runs[1])]
+    dp_gap = [min(state_gap(c, a), state_gap(c, b))
+              for a, b, c in zip(*runs)]
+    out = dict(backend=backend, steps=WORLD_OF_ONE_STEPS,
+               plain_vs_plain=plain_gap, data_parallel_vs_plain=dp_gap)
+    print(f'{label}: by step ' + json.dumps(out))
+    assert backend == 'nccl', backend
+    assert len(dp_gap) == WORLD_OF_ONE_STEPS
+    for i, (p, d) in enumerate(zip(plain_gap, dp_gap)):
+        assert d <= WORLD_OF_ONE_FACTOR * p, \
+            f'{label}: after step {i} the group of one lies {d} from the ' \
+            f'plain runs (two plain runs {p})'
+    return out
+
+
+def dp_eval_checkpoint(torch, device, setup):
+    """Path w's detector (see DP_EVAL_CLS_GAIN) written once as a port
+    checkpoint (``DetTrainState``) beside path q's tree; the bias shift is
+    found by bisection on the FCOS outputs of the first val batch. Its
+    launches (the BatchNorm calibration, the first batch) are not the
+    path's."""
+    if 'dp_checkpoint' not in setup:
+        setup['dp_checkpoint'] = uncounted(
+            lambda: write_dp_eval_checkpoint(torch, device, setup))
+    return setup['dp_checkpoint']
+
+
+def write_dp_eval_checkpoint(torch, device, setup):
+    from epropnp_tpu_torch.det import test as dtest
+    from epropnp_tpu_torch.det import train as dtrain
+    from epropnp_tpu_torch.det.api import inference_detector
+    from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
+    from epropnp_tpu_torch.det.pipelines import imread
+    from epropnp_tpu_torch.utils.checkpoint import save_checkpoint
+    cfg, model = build_det_model(torch, device, seed=0)
+    conv = model.bbox_head.detector.conv_cls
+    infos = NuScenes3DDataset(setup['paths']['val'],
+                              img_prefix=setup['root']).data_infos
+    infos = infos[:DATASET_BATCH]
+    imgs = [imread(os.path.join(setup['root'], i['img_path']))
+            for i in infos]
+    fn = dtest.make_inference_fn(model, cfg)
+    captured, dense = [], fn.dense
+    fn.dense = lambda img: captured.append(dense(img)) or captured[-1]
+    with torch.no_grad():
+        conv.weight.mul_(DP_EVAL_CLS_GAIN)
+        inference_detector(
+            model, cfg, imgs, [i['cam_intrinsic'] for i in infos],
+            infer_fn=fn, rng=torch.Generator(device).manual_seed(0))
+        outs = captured[0][0]
+        bs = len(imgs)
+        cls = torch.cat([o.cls_score.reshape(bs, -1, o.cls_score.shape[-1])
+                         for o in outs], 1).float()
+        ctr = torch.sigmoid(torch.cat([o.centerness.reshape(bs, -1, 1)
+                                       for o in outs], 1).float())
+        lo, hi = -1e3, 1e3
+        for _ in range(60):
+            mid = (lo + hi) / 2
+            n = float(((torch.sigmoid(cls + mid) * ctr) >= 0.04).sum()) / bs
+            lo, hi = (mid, hi) if n < DP_EVAL_CANDIDATES else (lo, mid)
+        conv.bias.add_(hi)
+        top = torch.sort((torch.sigmoid(cls + hi) * ctr).reshape(bs, -1),
+                         -1, descending=True)[0][:, :DP_EVAL_CANDIDATES + 1]
+    gaps = (top[:, :-1] - top[:, 1:]).min(1)[0]
+    print('path w: detector ' + json.dumps(dict(
+        cls_gain=DP_EVAL_CLS_GAIN, cls_bias_shift=hi,
+        candidates_per_image=DP_EVAL_CANDIDATES,
+        smallest_score_gap_in_the_top=[float(g) for g in gaps])))
+    path = os.path.join(setup['root'], 'dp_eval_detector.pt')
+    save_checkpoint(path, dtrain.DetTrainState(
+        model, dtrain.make_optimizer(cfg, model)))
+    return path
+
+
+def match_detections(got, want):
+    """The largest gap over tolerance between two submissions' detections,
+    matched per sample token and class in any order (rows of near-equal
+    scores may swap); inf where one has a detection the other lacks.
+    Returns ``(gap, matched)``."""
+    def row(d):
+        return np.array(d['translation'] + d['size'] + d['rotation']
+                        + [d['detection_score']])
+    worst, n = 0.0, 0
+    if got.keys() != want.keys():
+        return float('inf'), 0
+    for token, dets in want.items():
+        pool = [(d['detection_name'], row(d)) for d in got[token]]
+        if len(pool) != len(dets):
+            return float('inf'), n
+        for d in dets:
+            name, r = d['detection_name'], row(d)
+            gaps = [float(np.max(np.abs(v - r) / (DP_EVAL_ATOL
+                                                  + DP_EVAL_RTOL
+                                                  * np.abs(r))))
+                    if k == name else float('inf') for k, v in pool]
+            j = int(np.argmin(gaps))
+            worst = max(worst, gaps[j])
+            pool.pop(j)
+            n += 1
+    return worst, n
+
+
+def path_dp_det_eval(torch, device, setup, tta, q=None):
+    """Path w: ``tools.test_det.main --data-parallel`` on 2 ranks (gloo,
+    one card) over path q's 12 val frames in batches of 6 from path q's
+    ``latest.pt`` (``DetConfig.v1b()``, as the CLI builds it), plain or
+    with ``--tta``: each rank serves 3 frames of each batch, launching K3
+    36 times a batch (72 with TTA), and rank 0 fuses and scores. The
+    detector is phase g's weights with detections (:func:`dp_eval_checkpoint`)
+    in the CLI's ``DetConfig.v1b()``. The detections equal, at rtol/atol
+    1e-4, one single-process run per shard (rows 0-2 and 3-5 of each batch)
+    with the same seed in this process (not counted); NDS and mAP beside
+    the per-shard runs' and path q's (``q``, another model)."""
+    from epropnp_tpu_torch.det import api
+    from epropnp_tpu_torch.det.config import DetConfig
+    from epropnp_tpu_torch.det.nuscenes_dataset import NuScenes3DDataset
+    from epropnp_tpu_torch.tools.test_det import infer_dataset
+    label = f'path w{" TTA" if tta else ""}'
+    setup = det_dataset_setup(torch, device, setup)
+    out_dir = os.path.join(setup['root'], f'dp_eval_{int(tta)}')
+    checkpoint = dp_eval_checkpoint(torch, device, setup)
+    argv = ['--config', 'v1b', '--checkpoint', checkpoint,
+            '--ann', setup['paths']['val'], '--data', setup['root'],
+            '--out', out_dir, '--batch-size', str(DATASET_BATCH),
+            '--data-parallel'] + (['--tta'] if tta else [])
+    raw = os.path.join(out_dir, 'detections_rank{rank}.pkl')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    results = dp_spawn(torch, 'w', dict(argv=argv, raw=raw))
+    wall = time.perf_counter() - t0
+    per_batch = {'K3-f32': 72 if tta else 36}
+    n_batches = len(NuScenes3DDataset(setup['paths']['val'],
+                                      img_prefix=setup['root'])) \
+        // DATASET_BATCH
+    for r in results:
+        want = {k: v * n_batches for k, v in per_batch.items()}
+        assert r['launches'] == want, \
+            f'{label} rank {r["rank"]}: launches {r["launches"]}, {want}'
+    metrics = next(r['metrics'] for r in results if r['rank'] == 0)
+
+    def reference():
+        cfg = DetConfig.v1b()
+        model = api.init_detector(cfg, checkpoint=checkpoint, device=device)
+        dataset = NuScenes3DDataset(setup['paths']['val'],
+                                    img_prefix=setup['root'])
+        shards, captured = [], []
+        with torch.no_grad():
+            for r in range(DP_RANKS):
+                with DetectionCapture() as capture:
+                    shards += infer_dataset(
+                        model, cfg, dataset, setup['root'], DATASET_BATCH,
+                        tta, rng=torch.Generator(device).manual_seed(0),
+                        shard=(r, DP_RANKS))
+                captured.append(capture.batches)
+        shards.sort(key=lambda x: x[0])
+        assert [f for f, _ in shards] == list(range(len(dataset)))
+        return dataset.evaluate([x for _, x in shards],
+                                out_dir + '_ref'), captured
+    want, captured = uncounted(reference)
+    import pickle
+    slot_gap, slots = 0.0, 0
+    for r in results:
+        with open(r['raw'], 'rb') as f:
+            gap, n = detections_gap(pickle.load(f), captured[r['rank']])
+        slot_gap, slots = max(slot_gap, gap), slots + n
+    with open(os.path.join(out_dir, 'results_nusc.json')) as f:
+        got_det = json.load(f)['results']
+    with open(os.path.join(out_dir + '_ref', 'results_nusc.json')) as f:
+        want_det = json.load(f)['results']
+    worst, n_det = match_detections(got_det, want_det)
+    worst = max(worst, slot_gap)
+    q = q or {}
+    out = dict(ranks=DP_RANKS, wall_s_with_start=wall,
+               nd_score=metrics['nd_score'], mean_ap=metrics['mean_ap'],
+               per_shard_nd_score=want['nd_score'],
+               per_shard_mean_ap=want['mean_ap'],
+               path_q_nd_score=q.get('nd_score'),
+               path_q_mean_ap=q.get('mean_ap'), candidate_slots=slots,
+               fused_detections=n_det, worst_gap_over_tolerance=worst)
+    print(f'{label}: ' + json.dumps(out))
+    assert slots > 0, f'{label}: no candidate above the score threshold'
+    assert worst <= 1.0, f'{label}: detections off the per-shard runs'
+    return dict(out, rank_launches={
+        k: sum(r['launches'].get(k, 0) for r in results)
+        for k in per_batch})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', default=None,
                         help='comma-separated kernel phases to run alone '
                              '(a, a-groups, b, b+, e, e+, f, i, l, m, or a '
                              'card-vs-CPU step such as "s card vs CPU"); '
-                             'the main run (paths c-t) is skipped')
-    only = parser.parse_args(argv).only
+                             'the main run (paths c-w) is skipped')
+    parser.add_argument('--paths', default=None,
+                        help='comma-separated paths of the main run to run '
+                             'alone (e.g. "u,u one,w"), without the kernel '
+                             'phases; prints no ok line')
+    parser.add_argument('--dp-rank', default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--dp-args', default='{}', help=argparse.SUPPRESS)
+    parser.add_argument('--dp-out', default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    only = args.only
     only = None if only is None else set(only.split(','))
+    paths_only = None if args.paths is None else set(args.paths.split(','))
+    if paths_only is not None:
+        only = set()  # no kernel phase
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; nothing run',
               file=sys.stderr)
         return 2
+    if args.dp_rank is not None:  # one rank of path u, v or w
+        return dp_rank_main(args.dp_rank, json.loads(args.dp_args),
+                            args.dp_out)
     sys.path.insert(0, REPO)
     # the CLIs' settings (TF32 off, cuDNN's exhaustive search), set before
     # the first convolution: the default f32 heuristics run several Det
@@ -4066,7 +4809,7 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append(name)
         print(f'wall time of phase {name}: {time.perf_counter() - t0:.1f} s')
-    if only is not None:
+    if only is not None and paths_only is None:
         print(json.dumps({'kernels': [e for e in entries.values()
                                       if e is not None]}, default=str))
         if failed:
@@ -4110,17 +4853,27 @@ def main(argv=None) -> int:
                  torch, device, q_setup, tta=True)),
              ('q metrics', lambda: path_det_metrics_check(torch, device,
                                                           q_setup)),
+             ('w', lambda: path_dp_det_eval(torch, device, q_setup, False,
+                                            results.get('q eval'))),
+             ('w tta', lambda: path_dp_det_eval(
+                 torch, device, q_setup, True, results.get('q eval tta'))),
              ('r train', lambda: path_lm_train(
                  torch, device, r_setup, results.get('j', {}).get('ms'))),
              ('r eval epnp_device', lambda: path_lm_eval(
                  torch, device, r_setup, 'epnp_device')),
              ('r eval rslm', lambda: path_lm_eval(torch, device, r_setup,
                                                   'rslm')),
-             ('r validate', lambda: path_lm_validate(torch, device)))
+             ('r validate', lambda: path_lm_validate(torch, device)),
+             ('u', lambda: path_dp_sixdof(torch, device)),
+             ('u one', lambda: path_world_of_one(torch, device, 'u')),
+             ('v', lambda: path_dp_det(torch, device)),
+             ('v one', lambda: path_world_of_one(torch, device, 'v')))
     eval_setup, q_setup, r_setup = {}, {}, {}
     totals = dict.fromkeys(kernel_counters(), 0)
     results = {}
     for name, fn in paths:
+        if paths_only is not None and name not in paths_only:
+            continue
         t0 = time.perf_counter()
         try:
             counts = drive(torch, lambda: results.__setitem__(name, fn()))
@@ -4134,6 +4887,13 @@ def main(argv=None) -> int:
         print(f'launches in path {name}: {json.dumps(counts)}')
         for key, value in counts.items():
             totals[key] += value
+        ranks = results[name].get('rank_launches') \
+            if isinstance(results[name], dict) else None
+        if ranks is not None:  # the launches of the path's rank processes
+            print(f'launches of the ranks of path {name}: '
+                  + json.dumps(ranks))
+            for key, value in ranks.items():
+                totals[key] += value
         if name == 'j':
             others = {k: v for k, v in counts.items()
                       if k != 'K1-train' and v}
@@ -4174,7 +4934,14 @@ def main(argv=None) -> int:
                     'r eval epnp_device': {'K1': LM_FRAMES['test']
                                            // LM_BATCH},
                     'r eval rslm': {'K1': 2 * LM_FRAMES['test'] // LM_BATCH},
-                    'r validate': lm_validate_launches()}.get(name)
+                    'r validate': lm_validate_launches(),
+                    # the ranks' own launches are checked in the paths
+                    'u': {}, 'v': {}, 'w': {}, 'w tta': {},
+                    'u one': {'K1-train': 3 * TRAIN_K1_PER_STEP
+                              * WORLD_OF_ONE_STEPS},
+                    'v one': {k: 3 * v * WORLD_OF_ONE_STEPS
+                              for k, v in DET_STEP_LAUNCHES.items()},
+                    }.get(name)
         if expected is not None \
                 and {k: v for k, v in counts.items() if v} != expected:
             print(f'path {name}: launches {counts}, expected {expected}',
@@ -4196,6 +4963,10 @@ def main(argv=None) -> int:
             print(f'wall time of the {name} profile: '
                   f'{time.perf_counter() - t0:.1f} s')
     print('launches on the main run: ' + json.dumps(totals))
+    if paths_only is not None:
+        if failed:
+            print(f'chip_smoke: FAILED phases {failed}', file=sys.stderr)
+        return 1 if failed else 0
     variants = entries.get('e+') or [None, None]
     rows = {'K1': entries.get('a'), 'K1-train': entries.get('i'),
             'K2': entries.get('b'), 'K2-bounds': entries.get('l'),

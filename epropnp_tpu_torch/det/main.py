@@ -1,9 +1,10 @@
-"""Det-suite training driver (PyTorch), counterpart of the single-device
-half of ``epropnp_tpu/det/main.py``: build the detector, the optimizer and
-the train step, iterate batches, checkpoint per epoch (and resume), and
-the class-balanced sampler ``CBGSWrapper``. One device; it is the CUDA
-card unless the caller passes another. Training may start from a torch
-checkpoint (``load_torch``).
+"""Det-suite training loop (PyTorch), counterpart of
+``epropnp_tpu/det/main.py``: build the detector, the optimizer and the
+train step, iterate batches, checkpoint per epoch (and resume), on one
+device or data-parallel over a ``torch.distributed`` group (JAX's
+``make_sharded_step``), and the class-balanced sampler ``CBGSWrapper``.
+The device is the CUDA card unless the caller passes another. Training
+may start from a torch checkpoint (``load_torch``).
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..parallel.prefetch import BackgroundIterator, prefetch_to_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from ..utils.logging import get_logger
 from . import train as dtrain
 from .api import build_detector, load_torch_weights
 from .config import DetConfig
@@ -27,10 +28,12 @@ def _device(device) -> torch.device:
     return torch.device('cuda' if device is None else device)
 
 
-def build_all(cfg: DetConfig, device=None, seed: int = 0):
+def build_all(cfg: DetConfig, device=None, seed: int = 0,
+              data_parallel: bool = False):
     """The detector on ``device`` (channels-last weights), its parameters
-    the layers' initialisers drawn from ``seed``, and the train step.
-    Returns ``(model, step_fn)``. ``int8_dcn_gather`` is refused: the JAX
+    the layers' initialisers drawn from ``seed``, and the train step
+    (averaging over the replicas with ``data_parallel``). Returns
+    ``(model, step_fn)``. ``int8_dcn_gather`` is refused: the JAX
     package's int8 DCN contraction is forward only (serving)."""
     if cfg.int8_dcn_gather:
         raise NotImplementedError(
@@ -40,7 +43,7 @@ def build_all(cfg: DetConfig, device=None, seed: int = 0):
         torch.manual_seed(seed)
         model = build_detector(cfg)
     model = model.to(_device(device), memory_format=torch.channels_last)
-    return model, dtrain.make_train_step(cfg)
+    return model, dtrain.make_train_step(cfg, data_parallel=data_parallel)
 
 
 def init_state(cfg: DetConfig, model, steps_per_epoch: int = 0
@@ -77,6 +80,7 @@ def to_device(batch, device, dtype=torch.float32) -> dtrain.DetBatch:
 
 def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
                save_dir: str, resume_from: Optional[str] = None,
+               data_parallel: bool = False,
                log_interval: int = 50, seed: int = 0, prefetch: int = 2,
                ckpt_interval: int = 1, eval_fn=None, eval_interval: int = 1,
                device=None, on_step: Optional[Callable] = None,
@@ -102,10 +106,24 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
     ``api.load_torch_weights``) onto the fresh weights before training, as
     the reference starts from ``init_cfg=Pretrained torchvision://resnet101``
     (configs/epropnp_det_basic.py:18). Returns the state.
+
+    ``data_parallel``: one replica per process of a ``torch.distributed``
+    group (``parallel.mesh.init_data_parallel``: the ``torchrun``
+    environment, or a group of one), as JAX's ``make_sharded_step``.
+    ``cfg.train.batch_size`` is the global batch, and the loop calls
+    ``batch_iter_factory(epoch, rows)`` for this rank's rows of each global
+    batch (``mesh.rank_rows``; ``tools.train_det.make_batch_iter`` takes
+    them). Every rank seeds its generator alike, as JAX replicates its
+    key; rank 0 alone logs, writes the checkpoints and runs ``eval_fn``,
+    and the other ranks wait for it.
     """
     device = _device(device)
-    logger = get_logger('epropnp_tpu_torch.det', save_dir)
-    model, step_fn = build_all(cfg, device, seed)
+    rows = None
+    if data_parallel:
+        device = mesh.init_data_parallel(device).device
+        rows = mesh.rank_rows(cfg.train.batch_size)
+    logger = mesh.replica_logger('epropnp_tpu_torch.det', save_dir)
+    model, step_fn = build_all(cfg, device, seed, data_parallel)
     if load_torch:
         load_torch_weights(model, cfg, load_torch)
         logger.info('grafted torch weights from %s', load_torch)
@@ -113,11 +131,13 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
     if resume_from:
         load_checkpoint(resume_from, state)
         logger.info('resumed from %s', resume_from)
+    mesh.broadcast_state(state)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 1)
     for epoch in range(cfg.train.epochs):
         t0 = time.time()
-        batches = batch_iter_factory(epoch)
+        batches = (batch_iter_factory(epoch) if rows is None
+                   else batch_iter_factory(epoch, rows))
         if prefetch > 0:
             batches = prefetch_to_device(
                 BackgroundIterator(batches, maxsize=prefetch + 1),
@@ -132,16 +152,18 @@ def train_loop(cfg: DetConfig, batch_iter_factory, steps_per_epoch: int,
                                 f'{k}={float(v):.4f}'
                                 for k, v in sorted(metrics.items())),
                             time.time() - t0)
-        if (epoch + 1) % ckpt_interval == 0 \
-                or epoch + 1 == cfg.train.epochs:
+        if mesh.is_main() and ((epoch + 1) % ckpt_interval == 0
+                               or epoch + 1 == cfg.train.epochs):
             save_checkpoint(
                 os.path.join(save_dir, f'checkpoint_{epoch:03d}.pt'), state)
             save_checkpoint(os.path.join(save_dir, 'latest.pt'), state)
-        if eval_fn is not None and (epoch + 1) % eval_interval == 0:
+        if mesh.is_main() and eval_fn is not None \
+                and (epoch + 1) % eval_interval == 0:
             metrics = eval_fn(state, epoch)
             logger.info('epoch %d eval: %s', epoch, ' '.join(
                 f'{k}={v:.4f}' for k, v in sorted(metrics.items())
                 if isinstance(v, (int, float))))
+        mesh.barrier()
         logger.info('epoch %d done', epoch)
     return state
 

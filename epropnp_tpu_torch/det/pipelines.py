@@ -37,11 +37,17 @@ def gen_img_dense_x2d(h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def load_image_3d(sample: Dict) -> Dict:
-    """Populate img_shape / ori_shape / flip / the dense x2d map."""
-    h, w = sample['img'].shape[:2]
-    x2d, mask = gen_img_dense_x2d(h, w)
-    sample.update(img_shape=(h, w), ori_shape=(h, w), flip=False,
-                  img_dense_x2d=x2d, img_dense_x2d_mask=mask)
+    """Populate img_shape / ori_shape / flip / the dense x2d map. A sample
+    without ``img`` but with ``img_shape`` is a frame left unread: the
+    stages then make their draws and move the annotations only (a
+    data-parallel rank's view of another rank's rows)."""
+    if 'img' in sample:
+        h, w = sample['img'].shape[:2]
+        x2d, mask = gen_img_dense_x2d(h, w)
+        sample.update(img_dense_x2d=x2d, img_dense_x2d_mask=mask)
+    else:
+        h, w = sample['img_shape']
+    sample.update(img_shape=(h, w), ori_shape=(h, w), flip=False)
     return sample
 
 
@@ -70,22 +76,27 @@ def imread(path: str) -> np.ndarray:
 def resize_3d(sample: Dict, scale: float) -> Dict:
     """Resize the image and the dense fields (values untouched) by
     ``scale``, and the 2D boxes with them (cv2, bilinear)."""
-    cv2 = _cv2()
-    img = sample['img']
-    h, w = img.shape[:2]
+    h, w = sample['img'].shape[:2] if 'img' in sample \
+        else sample['img_shape']
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    sample['img'] = cv2.resize(img, (nw, nh),
-                               interpolation=cv2.INTER_LINEAR)
-    sample['img_dense_x2d'] = cv2.resize(
-        sample['img_dense_x2d'], (nw, nh), interpolation=cv2.INTER_LINEAR)
-    sample['img_dense_x2d_mask'] = cv2.resize(
-        sample['img_dense_x2d_mask'], (nw, nh),
-        interpolation=cv2.INTER_LINEAR)[..., None]
+    if 'img' in sample:
+        cv2 = _cv2()
+        sample['img'] = cv2.resize(sample['img'], (nw, nh),
+                                   interpolation=cv2.INTER_LINEAR)
+        sample['img_dense_x2d'] = cv2.resize(
+            sample['img_dense_x2d'], (nw, nh),
+            interpolation=cv2.INTER_LINEAR)
+        sample['img_dense_x2d_mask'] = cv2.resize(
+            sample['img_dense_x2d_mask'], (nw, nh),
+            interpolation=cv2.INTER_LINEAR)[..., None]
     sample['img_shape'] = (nh, nw)
     sample['scale_factor'] = scale
     if 'gt_bboxes' in sample and len(sample['gt_bboxes']):
         sample['gt_bboxes'] = sample['gt_bboxes'] * scale
     return sample
+
+
+_DENSE_FIELDS = ('img_dense_x2d', 'img_dense_x2d_mask')
 
 
 def random_flip_3d(sample: Dict, rng: np.random.Generator,
@@ -95,10 +106,9 @@ def random_flip_3d(sample: Dict, rng: np.random.Generator,
     geometry through the flip flag."""
     if rng.random() >= prob:
         return sample
-    sample['img'] = sample['img'][:, ::-1].copy()
-    sample['img_dense_x2d'] = sample['img_dense_x2d'][:, ::-1].copy()
-    sample['img_dense_x2d_mask'] = \
-        sample['img_dense_x2d_mask'][:, ::-1].copy()
+    for key in ('img',) + _DENSE_FIELDS:
+        if key in sample:
+            sample[key] = sample[key][:, ::-1].copy()
     sample['flip'] = True
     if 'gt_bboxes' in sample and len(sample['gt_bboxes']):
         w = sample['img_shape'][1]
@@ -112,7 +122,6 @@ def random_flip_3d(sample: Dict, rng: np.random.Generator,
 # every crop
 _ALIGNED_GT_FIELDS = ('gt_labels', 'gt_bboxes_3d', 'gt_velo', 'gt_attr',
                       'truncation', 'gt_x3d', 'gt_x2d')
-_DENSE_FIELDS = ('img_dense_x2d', 'img_dense_x2d_mask')
 
 
 def _filter_aligned(sample: Dict, valid: np.ndarray):
@@ -137,10 +146,11 @@ def crop_3d(sample: Dict, crop_box, trunc_ignore_thres: float = -1.0,
     The released configs crop the sky band, ``REFERENCE_CROP_BOX``, in
     training and test."""
     x1, y1, x2, y2 = (int(v) for v in crop_box)
-    sample['img'] = sample['img'][y1:y2, x1:x2]
-    h, w = sample['img'].shape[:2]
+    h0, w0 = sample['img'].shape[:2] if 'img' in sample \
+        else sample['img_shape']
+    h, w = len(range(h0)[y1:y2]), len(range(w0)[x1:x2])
     sample['img_shape'] = (h, w)
-    for key in _DENSE_FIELDS:
+    for key in ('img',) + _DENSE_FIELDS:
         if key in sample:
             sample[key] = sample[key][y1:y2, x1:x2]
 
@@ -322,6 +332,8 @@ def default_pipeline(sample: Dict, rng: Optional[np.random.Generator] = None,
                          allow_negative_crop=not training)
         if sample is None:
             return None
+    if 'img' not in sample:  # an unread frame: the draws are made
+        return sample
     sample = normalize_img(sample)
     return pad_3d(sample, size_divisor)
 

@@ -17,7 +17,9 @@ backward (``ops.dcn_kernel.DCNFunction``). The model's options train as
 the JAX package trains them: a bf16 backbone and dense stage with f32
 parameters and no loss scaling, the level-packed towers, and
 ``remat_dense``, which recomputes the dense forward in the backward
-(``models.norm.checkpoint``). Single device; the optimizer is
+(``models.norm.checkpoint``). Data-parallel training
+(``make_train_step(data_parallel=True)``, ``parallel.mesh``) averages
+what JAX's ``shard_map`` step averages with ``pmean``. The optimizer is
 :class:`AdamW`, the update of the JAX package's optax chain.
 """
 
@@ -53,6 +55,7 @@ from ..ops.pnp import (
     PerspectiveCamera,
     RSLMSolver,
 )
+from ..parallel.mesh import mean_buffers, mean_gradients, replica_mean
 from ..utils.optim import OptaxOptimizer, all_finite, global_norm
 from .config import DetConfig
 
@@ -99,12 +102,17 @@ def avg_pool_stride(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def compute_losses(model, cfg: DetConfig, batch: DetBatch,
-                   ema: HeadEMAState, gen: torch.Generator):
+                   ema: HeadEMAState, gen: torch.Generator,
+                   data_parallel: bool = False):
     """Forward and every loss of a step, with ``model`` in its current mode
     (training mode moves the BatchNorm statistics). ``gen`` draws the
     object samples, the RSLM seeds and the AMIS proposals, in that order.
-    Returns ``(total, losses, new_ema)``; ``losses`` holds every ``loss_*``
-    term, ``ate`` and the last stage's ``norm_factor``."""
+    With ``data_parallel`` (JAX's ``axis_name``) ``batch`` is this
+    replica's rows, and every loss normaliser and EMA statistic is averaged
+    over the replicas (``parallel.mesh.replica_mean``, differentiable as
+    JAX's ``pmean``) where JAX averages it. Returns ``(total, losses,
+    new_ema)``; ``losses`` holds every ``loss_*`` term, ``ate`` and the
+    last stage's ``norm_factor``."""
     n_img, gmax = batch.gt_labels.shape
     g_total = n_img * gmax
     s_total = cfg.train.num_obj_samples_per_img * n_img
@@ -166,7 +174,8 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
     flat_gt_inds = (gt_inds_local + torch.arange(n_img, device=dev)[:, None]
                     * gmax).reshape(-1)
     losses = detector.loss(flat_cls, flat_center, flat_ctr, flat_labels,
-                           flat_gt_inds, flat_ctr_t, centers2d_f, gt_boxes_f)
+                           flat_gt_inds, flat_ctr_t, centers2d_f, gt_boxes_f,
+                           data_parallel=data_parallel)
 
     # ---- object sampling, subheads ----
     pt_inds, s_gt_inds, s_weights, s_uweights, s_valid = obj_sampler(
@@ -203,8 +212,8 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
             cost_fun, rng=gen, pose_init=pose_tgt, force_init_solve=True)
         loss_pose, new_mc = monte_carlo_pose_loss(
             logweights, cost_tgt, norm_factor, ema.pose_norm_factor[stage_id],
-            momentum=0.01, training=True, weight=s_weights,
-            avg_factor=float(s_total))
+            momentum=0.01, training=True, data_parallel=data_parallel,
+            weight=s_weights, avg_factor=float(s_total))
         new_mc_states.append(new_mc)
         losses[f'loss_pose_{stage_id}'] = loss_pose * cfg.loss.pose
 
@@ -284,7 +293,10 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
             logstd=logstd_roi.reshape(g_total, heads, rh, rw, 2),
             logmixweight=attn_ls, mean_inv_std=ema.proj_mean_inv_std,
             roi_boxes=gt_boxes_f, roi_img_ids=roi_ids_eff,
+            data_parallel=data_parallel,
             weight=act_mask[:, None, None].to(dt), reduction='sum')
+        if data_parallel:
+            num_act = replica_mean(num_act)
         losses['loss_proj'] = loss_proj_raw / (
             torch.clamp(num_act, min=1.0) * rh * rw) * cfg.loss.proj
 
@@ -311,10 +323,13 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
             / torch.clamp(max_dim[:, None, None], min=1e-6)
         x3d_w = torch.softmax(attn.reshape(g_total, heads, rh * rw), 1) \
             * torch.clamp(cnt, max=1.0)[:, None, :] * act_mask[:, None, None]
+        # not detached, as in JAX: the gradient flows through the mean
+        w_sum = x3d_w.sum()
+        if data_parallel:
+            w_sum = replica_mean(w_sum)
         losses['loss_regr'] = smooth_l1_loss_mod(
             regr_err, -1, beta=cfg.loss.regr_beta, weight=x3d_w,
-            reduction='sum') / torch.clamp(x3d_w.sum(), min=1e-4) \
-            * cfg.loss.regr
+            reduction='sum') / torch.clamp(w_sum, min=1e-4) * cfg.loss.regr
 
     # ---- velocity and attribute losses ----
     if cfg.pred_velo:
@@ -322,9 +337,12 @@ def compute_losses(model, cfg: DetConfig, batch: DetBatch,
         nan_mask = torch.isnan(velo_t)
         velo_t = torch.where(nan_mask, 0.0, velo_t)
         velo_w = s_weights[:, None] * (~nan_mask)
+        vw_sum = torch.clamp(velo_w.sum(), min=1.0)
+        if data_parallel:
+            vw_sum = replica_mean(vw_sum)
         losses['loss_velo'] = smooth_l1_loss_mod(
             sub.velo, velo_t, beta=1.0, weight=velo_w, reduction='sum') \
-            / torch.clamp(velo_w.sum(), min=1.0) * cfg.loss.velo
+            / vw_sum * cfg.loss.velo
     if cfg.pred_attr:
         attr_t = flat(batch.gt_attr).long()[s_gt_inds]
         ce = -torch.log_softmax(sub.attr, -1).gather(-1, attr_t[:, None])[:, 0]
@@ -451,7 +469,7 @@ class DetTrainState(nn.Module):
         self.ema_proj_mean_inv_std.copy_(ema.proj_mean_inv_std)
 
 
-def make_train_step(cfg: DetConfig):
+def make_train_step(cfg: DetConfig, data_parallel: bool = False):
     """The train step ``step(state, batch, gen) -> metrics``.
 
     It updates ``state`` in place: the BatchNorm statistics, the EMA
@@ -460,15 +478,27 @@ def make_train_step(cfg: DetConfig):
     skip, ``det/train.py:449-470``). ``metrics`` holds every loss term,
     ``ate``, ``norm_factor``, ``grad_norm`` and ``skipped`` (0 or 1), as
     tensors.
+
+    With ``data_parallel`` (JAX's ``axis_name``; a ``torch.distributed``
+    group is up) ``batch`` is this replica's rows, the losses average
+    their normalisers over the replicas, and after the backward the
+    gradients and the BatchNorm statistics are averaged
+    (``parallel.mesh.mean_gradients`` / ``mean_buffers``) before the
+    finiteness check, so every replica takes the same skip decision and
+    the same update. The metrics are this replica's.
     """
 
     def train_step(state: DetTrainState, batch: DetBatch,
                    gen: torch.Generator):
         state.model.train()
         state.tx.zero_grad(set_to_none=True)
-        total, losses, new_ema = compute_losses(state.model, cfg, batch,
-                                                state.ema, gen)
+        total, losses, new_ema = compute_losses(
+            state.model, cfg, batch, state.ema, gen,
+            data_parallel=data_parallel)
         total.backward()
+        if data_parallel:
+            mean_gradients(state.model.parameters())
+            mean_buffers(state.model)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.model.parameters()]
         ok = bool(all_finite(grads))  # one host sync per step

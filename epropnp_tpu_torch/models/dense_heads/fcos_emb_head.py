@@ -29,6 +29,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ...ops.deform_conv import Conv2d, DeformConv, conv_nhwc
+from ...parallel.mesh import replica_mean
 from ...ops.level_pack import (
     map_levels, pack_levels, plan_level_packing, unpack_levels)
 from ..losses.det_losses import sigmoid_focal_loss, smooth_l1_loss_mod
@@ -306,7 +307,8 @@ class FCOSEmbHead(nn.Module):
         return labels, ctr, gt_ind
 
     def loss(self, flat_cls, flat_center, flat_centerness, labels, gt_inds,
-             centerness_targets, centers2d, gt_bboxes):
+             centerness_targets, centers2d, gt_bboxes,
+             data_parallel: bool = False):
         """Masked FCOS losses over the points of all images.
 
         flat_cls (N, num_classes); flat_center (N, 2) or (N, C * 2);
@@ -314,10 +316,15 @@ class FCOSEmbHead(nn.Module):
         centers2d (G, 2) and gt_bboxes (G, 4), the GT of all images that
         gt_inds indexes. Returns ``loss_cls`` (focal), ``loss_rp`` (the
         centre offset, smooth L1 weighted by centerness) and
-        ``loss_centerness`` (BCE on the positives).
+        ``loss_centerness`` (BCE on the positives). With ``data_parallel``
+        the positives' count and the centerness weights' sum are averaged
+        over the replicas (JAX ``fcos_emb_head.py:332-333, 353-354``).
         """
         pos = labels < self.num_classes
-        num_pos = torch.clamp(pos.to(flat_cls.dtype).sum(), min=1.0)
+        num_pos = pos.to(flat_cls.dtype).sum()
+        if data_parallel:
+            num_pos = replica_mean(num_pos)
+        num_pos = torch.clamp(num_pos, min=1.0)
         onehot = F.one_hot(labels, self.num_classes + 1)[
             :, :self.num_classes].to(flat_cls.dtype)
         loss_cls = sigmoid_focal_loss(flat_cls, onehot,
@@ -333,9 +340,12 @@ class FCOSEmbHead(nn.Module):
         rel_err = (flat_center - center_gt) / (
             self.center_error_scale * (ref_len + self.min_ref_length))
         ctr_w = torch.where(pos, centerness_targets, 0.0)
+        ctr_sum = ctr_w.sum()
+        if data_parallel:
+            ctr_sum = replica_mean(ctr_sum)
         loss_rp = smooth_l1_loss_mod(
             rel_err, 0, beta=1.0, weight=ctr_w[:, None], reduction='sum') \
-            / (torch.clamp(ctr_w.sum(), min=1e-6) * 2.0)
+            / (torch.clamp(ctr_sum, min=1e-6) * 2.0)
         bce = (F.softplus(-flat_centerness) * centerness_targets
                + F.softplus(flat_centerness) * (1.0 - centerness_targets))
         loss_centerness = torch.where(pos, bce, 0.0).sum() / num_pos

@@ -11,13 +11,16 @@
   reprojection deviations over attention heads (log-std and log-mixture
   weights), with the optional cross-RoI normalisation of the mixture and
   an adaptive weight dividing by an EMA of the mean inverse std, returned
-  as explicit state. Single device (no cross-replica mean).
+  as explicit state, whose batch statistic is averaged over the
+  data-parallel replicas (``parallel.mesh.replica_mean``) on request.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ...parallel.mesh import replica_mean
 
 
 def weight_reduce_loss(loss, weight=None, reduction: str = 'mean',
@@ -72,12 +75,14 @@ def mvd_gaussian_mixture_nll_loss(
         pred, target, logstd, logmixweight, mean_inv_std,
         roi_boxes=None, roi_img_ids=None, adaptive_weight: bool = True,
         momentum: float = 0.1, mix_axis: int = 1, eps: float = 1e-4,
-        training: bool = True, weight=None, reduction: str = 'mean',
-        avg_factor=None):
+        training: bool = True, data_parallel: bool = False, weight=None,
+        reduction: str = 'mean', avg_factor=None):
     """pred/target (n, num_mix, h, w, 2) (or an integer target 0/-1);
     logstd (n, num_mix, h, w, 2); logmixweight (n, num_mix, h, w);
     mean_inv_std the scalar EMA. ``roi_boxes``/``roi_img_ids`` turn on the
-    cross-RoI logsumexp. Returns ``(loss, new_mean_inv_std)``."""
+    cross-RoI logsumexp. With ``data_parallel`` the EMA's batch statistic
+    is averaged over the replicas (its numerator and denominator apart, as
+    JAX's ``pmean``). Returns ``(loss, new_mean_inv_std)``."""
     diff = _diff(pred, target)
     inverse_std = torch.clamp(torch.exp(-logstd), max=1.0 / eps)
     dw_sq = (diff * inverse_std).square().sum(-1)
@@ -99,6 +104,8 @@ def mvd_gaussian_mixture_nll_loss(
             mixweight = torch.exp(logmixweight.detach())[..., None]
             num = (inv_std * mixweight).sum()
             den = mixweight.sum() * 2.0
+            if data_parallel:
+                num, den = replica_mean(num), replica_mean(den)
             batch_mean_inv_std = num / torch.clamp(den, min=eps)
             new_mean_inv_std = mean_inv_std * (1.0 - momentum) \
                 + momentum * batch_mean_inv_std

@@ -3,8 +3,10 @@
 Counterpart of ``epropnp_tpu/models/losses/monte_carlo_pose_loss.py``:
 ``loss = (cost_target + logsumexp(pose_sample_logweights)) / norm_factor``,
 where ``norm_factor`` is an exponential moving average of a scale that the
-caller supplies. The 6DoF variant is the default; ``weight`` and
-``avg_factor`` give the Det variant's mmdet-style weighting.
+caller supplies, averaged over the data-parallel replicas
+(``parallel.mesh.replica_mean``, JAX's ``lax.pmean``). The 6DoF variant
+is the default; ``weight`` and ``avg_factor`` give the Det variant's
+mmdet-style weighting.
 
 The EMA is explicit state (``MonteCarloPoseLossState``); a trainer keeps
 its value as a buffer and checkpoints it with the parameters, as the
@@ -17,6 +19,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
+
+from ...parallel.mesh import replica_mean
 
 
 @dataclass(frozen=True)
@@ -37,14 +41,18 @@ def monte_carlo_pose_loss(
     state: MonteCarloPoseLossState,
     momentum: float = 0.01,
     training: bool = True,
+    data_parallel: bool = False,
     weight: Optional[torch.Tensor] = None,
     avg_factor: Optional[torch.Tensor] = None,
     loss_weight: float = 1.0,
 ):
     """Returns ``(loss, new_state)``; ``norm_factor`` enters the EMA
-    without gradient. Single device (no cross-replica mean)."""
+    without gradient, averaged over the replicas with ``data_parallel``
+    (the reference's ``reduce_mean``)."""
     if training:
         nf = norm_factor.detach()
+        if data_parallel:
+            nf = replica_mean(nf)
         new_state = replace(state, norm_factor=state.norm_factor
                             * (1.0 - momentum) + momentum * nf)
     else:

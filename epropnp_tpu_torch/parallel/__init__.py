@@ -1,3 +1,5 @@
-"""Host batch pipelines of the PyTorch port (the single-device part of
-``epropnp_tpu/parallel``; the mesh and the host shard sampler are not
-ported)."""
+"""Data parallelism and host batch pipelines of the PyTorch port, the
+counterpart of ``epropnp_tpu/parallel``: ``torch.distributed`` for the
+device mesh and its ``pmean`` (``mesh``), the per-rank sampler
+(``sampler``), and threaded producers with device prefetch
+(``prefetch``)."""

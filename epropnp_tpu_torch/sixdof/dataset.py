@@ -377,26 +377,54 @@ class LineMODDataset:
         return np.array([abs(info['min_x']), abs(info['min_y']),
                          abs(info['min_z'])], np.float32)
 
-    def __getitem__(self, idx) -> Sample:
+    def draw(self, idx):
+        """The random draws of sample ``idx``, taken from ``self.rng`` in
+        the order :meth:`__getitem__` takes them, without reading a frame:
+        ``(background path or None, the generator's state for the crop's
+        draws)``. :meth:`make` builds the sample from them."""
+        rec = self.annot[idx]
+        bg = None
+        if (self.split == 'train' and self._bg_files
+                and os.path.isfile(os.path.join(rec['dir'], 'mask',
+                                                rec['stem'] + '.png'))
+                and self.rng.random() < self.change_bg_ratio):
+            bg = self._bg_files[self.rng.integers(len(self._bg_files))]
+        state = self.rng.bit_generator.state
+        if self.split == 'train':  # advance past the DZI's draws
+            xywh_to_cs_dzi(np.ones(4), 1.0, rng=self.rng)
+        return bg, state
+
+    def make(self, idx, draws) -> Sample:
+        """Sample ``idx`` from the frame on disk and its :meth:`draw`."""
+        bg, state = draws
         rec = self.annot[idx]
         rgb, coor, msk, pose, box = self._load(rec)
-        bg_img = None
-        if (self.split == 'train' and self._bg_files and msk is not None
-                and self.rng.random() < self.change_bg_ratio):
-            bg_img = read_background(
-                self._bg_files[self.rng.integers(len(self._bg_files))])
+        rng = np.random.Generator(type(self.rng.bit_generator)())
+        rng.bit_generator.state = state
         return build_sample(
             self.cfg, rec['cls'], rgb, coor, msk, pose, box,
-            self.min_extents(rec['cls']), split=self.split, rng=self.rng,
-            bg_img=bg_img, denoise=coor is not None)
+            self.min_extents(rec['cls']), split=self.split, rng=rng,
+            bg_img=None if bg is None else read_background(bg),
+            denoise=coor is not None)
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
-        """Yield ``Batch`` records of CPU tensors (drops the ragged
-        tail)."""
+    def __getitem__(self, idx) -> Sample:
+        return self.make(idx, self.draw(idx))
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                rows: slice = slice(None)):
+        """Yield ``Batch`` records of CPU tensors (drops the ragged tail).
+
+        ``rows`` cuts each global batch to a data-parallel rank's block:
+        the draws of the whole batch are taken in order (cheap), and only
+        the rank's frames are read and built, so its batch is its rows of
+        the global batch bit for bit."""
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         extents = {c: self.min_extents(c) for c in self.classes}
         for i in range(0, len(order) - batch_size + 1, batch_size):
-            samples = [self[j] for j in order[i:i + batch_size]]
+            idx = order[i:i + batch_size]
+            draws = [self.draw(j) for j in idx]
+            samples = [self.make(j, d) for j, d in
+                       zip(idx[rows], draws[rows])]
             yield collate(samples, extents)

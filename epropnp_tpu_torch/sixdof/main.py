@@ -1,12 +1,14 @@
 """6DoF suite training and evaluation loops (PyTorch).
 
 Counterpart of ``epropnp_tpu/sixdof/main.py`` (the reference CLI entry,
-EPro-PnP-6DoF/tools/main.py:44-106) on one device: build the model, the
-PnP stack, the optimizer and the train step, then the epoch loop with the
-step decay inside the optimizer and a checkpoint per ``ckpt_interval``
-epochs (``train_loop``); evaluate a trained model on a test split with
-``PoseEvaluator``'s metrics (``test_loop``, the reference lib/test.py).
-The device is the CUDA card unless the caller passes another.
+EPro-PnP-6DoF/tools/main.py:44-106): build the model, the PnP stack, the
+optimizer and the train step, then the epoch loop with the step decay
+inside the optimizer and a checkpoint per ``ckpt_interval`` epochs
+(``train_loop``, on one device or data-parallel over a
+``torch.distributed`` group); evaluate a trained model on a test split
+with ``PoseEvaluator``'s metrics (``test_loop``, the reference
+lib/test.py). The device is the CUDA card unless the caller passes
+another.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.cdpn import CDPN
+from ..parallel import mesh
 from ..parallel.prefetch import BackgroundIterator, prefetch_to_device
 from ..utils.checkpoint import (TORCH_SUFFIXES, load_checkpoint,
                                 load_jax_variables, save_checkpoint)
@@ -44,8 +47,10 @@ def build_cdpn(cfg: SixDoFConfig) -> CDPN:
                 else None)
 
 
-def build_all(cfg: SixDoFConfig, cam_intrinsic=None, device=None):
-    """Model (on ``device``), PnP stack and train step.
+def build_all(cfg: SixDoFConfig, cam_intrinsic=None, device=None,
+              data_parallel: bool = False):
+    """Model (on ``device``), PnP stack and train step (averaging over the
+    replicas with ``data_parallel``).
 
     Returns ``(model, epropnp, step_fn)``; the optimizer needs the model's
     parameters and comes with the state (:func:`init_state`).
@@ -56,7 +61,8 @@ def build_all(cfg: SixDoFConfig, cam_intrinsic=None, device=None):
     cam = torch.tensor(np.asarray(ref.CAMERA_MATRIX if cam_intrinsic is None
                                   else cam_intrinsic), dtype=torch.float32,
                        device=device)
-    step_fn = train_lib.make_train_step(epropnp, cfg, cam)
+    step_fn = train_lib.make_train_step(epropnp, cfg, cam,
+                                        data_parallel=data_parallel)
     return model, epropnp, step_fn
 
 
@@ -83,12 +89,22 @@ def to_device(batch, device) -> train_lib.Batch:
 
 
 def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
-               resume_from: Optional[str] = None, log_interval: int = 20,
+               resume_from: Optional[str] = None,
+               data_parallel: bool = False, log_interval: int = 20,
                seed: int = 0, prefetch: int = 2, ckpt_interval: int = 1,
                device=None, on_step: Optional[Callable] = None):
     """Epoch loop over ``dataset``, any object with ``__len__`` and
     ``batches(batch_size, shuffle, seed)`` yielding ``Batch`` records of
     numpy arrays or tensors.
+
+    ``data_parallel``: one replica per process of a ``torch.distributed``
+    group (``parallel.mesh.init_data_parallel``: the ``torchrun``
+    environment, or a group of one), as JAX's ``make_sharded_step``.
+    ``cfg.train.train_batch_size`` is the global batch; each rank trains on
+    its rows (``mesh.rank_rows``), which ``dataset.batches(...,
+    rows=rows)`` must yield: the rows of the global batch the loop would
+    build alone, bit for bit. Every rank seeds its generator alike, as JAX
+    replicates its key; rank 0 alone logs and writes the checkpoints.
 
     ``prefetch`` > 0 runs the batch generator on a background thread
     (``parallel.prefetch.BackgroundIterator``, ``prefetch + 1`` batches
@@ -101,9 +117,14 @@ def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
     with the step's metrics (tensors on the device). Returns the state.
     """
     device = _device(device)
-    logger = get_logger('epropnp_tpu_torch.6dof', save_dir)
+    rows = None
+    if data_parallel:
+        device = mesh.init_data_parallel(device).device
+        rows = mesh.rank_rows(cfg.train.train_batch_size)
+    logger = mesh.replica_logger('epropnp_tpu_torch.6dof', save_dir)
     n_batches = max(len(dataset) // cfg.train.train_batch_size, 1)
-    model, _, step_fn = build_all(cfg, device=device)
+    model, _, step_fn = build_all(cfg, device=device,
+                                  data_parallel=data_parallel)
     state = init_state(cfg, model, n_batches, seed)
     if cfg.load_model:
         load_checkpoint(cfg.load_model, state,
@@ -112,14 +133,16 @@ def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
     if resume_from:
         load_checkpoint(resume_from, state)
         logger.info('resumed full state from %s', resume_from)
+    mesh.broadcast_state(state)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 1)
 
     for epoch in range(cfg.train.begin_epoch, cfg.train.end_epoch):
         meters = {}
         t0 = time.time()
-        batches = dataset.batches(cfg.train.train_batch_size, shuffle=True,
-                                  seed=seed + epoch)
+        batches = dataset.batches(
+            cfg.train.train_batch_size, shuffle=True, seed=seed + epoch,
+            **({} if rows is None else dict(rows=rows)))
         if prefetch > 0:
             batches = prefetch_to_device(
                 BackgroundIterator(batches, maxsize=prefetch + 1),
@@ -140,8 +163,10 @@ def train_loop(cfg: SixDoFConfig, dataset, save_dir: str,
         if (epoch + 1) % ckpt_interval == 0 \
                 or epoch + 1 == cfg.train.end_epoch:
             ckpt = os.path.join(save_dir, f'checkpoint_{epoch:03d}.pt')
-            save_checkpoint(ckpt, state)
-            save_checkpoint(os.path.join(save_dir, 'latest.pt'), state)
+            if mesh.is_main():
+                save_checkpoint(ckpt, state)
+                save_checkpoint(os.path.join(save_dir, 'latest.pt'), state)
+            mesh.barrier()
             logger.info('epoch %d done, checkpoint -> %s', epoch, ckpt)
         else:
             logger.info('epoch %d done', epoch)

@@ -13,8 +13,11 @@ again in the backward (``models.norm.checkpoint``).
 
 The optimizer is :class:`RMSprop`, the update of ``optax.rmsprop`` that the
 JAX package uses (eps inside the square root, ``nu`` starting at 0), not
-``torch.optim.RMSprop``. Single device; data-parallel training is not
-ported.
+``torch.optim.RMSprop``. Data-parallel training
+(``make_train_step(data_parallel=True)``) averages over the replicas what
+JAX's ``shard_map`` step averages with ``pmean``: the gradients, the
+BatchNorm statistics and the Monte Carlo loss's ``norm_factor``
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..ops.pnp import (
     RSLMSolver,
 )
 from ..ops.rotation_conversions import matrix_to_quaternion
+from ..parallel.mesh import mean_buffers, mean_gradients
 from ..utils.optim import OptaxOptimizer, all_finite, global_norm
 from .config import SixDoFConfig
 
@@ -230,9 +234,12 @@ class LossOutputs(NamedTuple):
 
 def compute_losses(model: CDPN, epropnp: EProPnP6DoF, cfg: SixDoFConfig,
                    batch: Batch, cam_intrinsic, gen: torch.Generator,
-                   mc_state: MonteCarloPoseLossState):
+                   mc_state: MonteCarloPoseLossState,
+                   data_parallel: bool = False):
     """Forward + all 6DoF losses (reference lib/train.py:136-204) with the
-    model in its current mode. Returns ``(loss, aux, new_mc_state)``."""
+    model in its current mode; with ``data_parallel`` (JAX's
+    ``axis_name``) the Monte Carlo loss's ``norm_factor`` is averaged over
+    the replicas. Returns ``(loss, aux, new_mc_state)``."""
     # recompute the CDPN activations in the backward (NetworkConfig.remat,
     # JAX sixdof/train.py:206-208)
     outs = checkpoint(model, model, batch.inp) if cfg.network.remat \
@@ -262,7 +269,7 @@ def compute_losses(model: CDPN, epropnp: EProPnP6DoF, cfg: SixDoFConfig,
     # Monte Carlo loss (lib/train.py:182-183); norm_factor = mean scale
     loss_mc, new_mc_state = monte_carlo_pose_loss(
         pose_sample_logweights, cost_tgt, scale.detach().mean(), mc_state,
-        momentum=0.01, training=True)
+        momentum=0.01, training=True, data_parallel=data_parallel)
 
     # derivative regularization (lib/train.py:185-193)
     dist_t = torch.linalg.vector_norm(pose_opt_plus[:, :3] - pose_gt[:, :3],
@@ -288,7 +295,8 @@ def compute_losses(model: CDPN, epropnp: EProPnP6DoF, cfg: SixDoFConfig,
     return loss, aux, new_mc_state
 
 
-def make_train_step(epropnp: EProPnP6DoF, cfg: SixDoFConfig, cam_intrinsic):
+def make_train_step(epropnp: EProPnP6DoF, cfg: SixDoFConfig, cam_intrinsic,
+                    data_parallel: bool = False):
     """The train step ``step(state, batch, gen) -> metrics``.
 
     It updates ``state`` in place: the BatchNorm statistics, the Monte
@@ -298,6 +306,13 @@ def make_train_step(epropnp: EProPnP6DoF, cfg: SixDoFConfig, cam_intrinsic):
     that of the norm, whose sum of squares can overflow). ``metrics``
     holds the loss components, ``grad_norm`` and ``skipped`` (0 or 1) as
     tensors.
+
+    With ``data_parallel`` (a ``torch.distributed`` group is up) ``batch``
+    is this replica's rows; after the backward the gradients and the
+    BatchNorm statistics are averaged over the replicas before the
+    finiteness check (JAX ``sixdof/train.py:286-288``), so every replica
+    takes the same decision and the same update. The metrics are this
+    replica's.
     """
 
     def train_step(state: TrainState, batch: Batch, gen: torch.Generator):
@@ -305,8 +320,11 @@ def make_train_step(epropnp: EProPnP6DoF, cfg: SixDoFConfig, cam_intrinsic):
         state.tx.zero_grad(set_to_none=True)
         loss, aux, new_mc_state = compute_losses(
             state.model, epropnp, cfg, batch, cam_intrinsic, gen,
-            state.mc_state)
+            state.mc_state, data_parallel)
         loss.backward()
+        if data_parallel:
+            mean_gradients(state.model.parameters())
+            mean_buffers(state.model)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.model.parameters()]
         ok = bool(all_finite(grads))  # one host sync per step

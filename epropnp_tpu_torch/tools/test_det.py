@@ -11,6 +11,12 @@ The checkpoint is the port's own ``latest.pt`` (``tools.train_det``), a
 JAX msgpack file or an external torch file (``det.api.init_detector``).
 Without the nuScenes devkit the metrics are the self-contained
 ``detection_cvpr_2019`` protocol of ``det.nuscenes_eval``.
+
+``--data-parallel`` splits every batch over the ranks of a
+``torch.distributed`` group (``torchrun --nproc-per-node N -m
+epropnp_tpu_torch.tools.test_det --data-parallel ...``), the counterpart
+of JAX's ``data_parallel_infer``; rank 0 gathers the detections, fuses
+and scores them.
 """
 
 from __future__ import annotations
@@ -19,33 +25,46 @@ import argparse
 import copy
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..det.config import DetConfig
 from ..det.pipelines import imread as read_frame
+from ..parallel import mesh
 from ..utils import cuda_setup
 from ..utils.timer import IterTimers
 
 CONFIGS = ('basic', 'coord_regr', 'v1b', 'smoke')
 
 
-def evaluate_dataset(model, cfg: DetConfig, dataset, data_root: str,
-                     out_dir: str, batch_size: int = 6, tta: bool = False,
-                     imread: Callable[[str], np.ndarray] = read_frame,
-                     rng: Optional[torch.Generator] = None,
-                     timers: Optional[IterTimers] = None,
-                     on_batch: Optional[Callable[[int], None]] = None
-                     ) -> Dict:
+def shard_rows(n: int, shard: Optional[Tuple[int, int]]) -> slice:
+    """The rows of a batch of ``n`` frames that ``shard`` = (rank, world)
+    serves: its block (``mesh.rank_rows``); a batch that does not divide,
+    the last, goes whole to rank 0, as JAX's tail runs on one device."""
+    if shard is None:
+        return slice(None)
+    rank, world = shard
+    if n % world:
+        return slice(None) if rank == 0 else slice(0)
+    return mesh.rank_rows(n, rank, world)
+
+
+def infer_dataset(model, cfg: DetConfig, dataset, data_root: str,
+                  batch_size: int = 6, tta: bool = False,
+                  imread: Callable[[str], np.ndarray] = read_frame,
+                  rng: Optional[torch.Generator] = None,
+                  timers: Optional[IterTimers] = None,
+                  on_batch: Optional[Callable[[int], None]] = None,
+                  shard: Optional[Tuple[int, int]] = None) -> List:
     """Serve ``dataset``'s frames in batches of ``batch_size`` (the
-    inference function made once; ``tta`` the flip TTA) and score them
-    with ``dataset.evaluate`` into ``out_dir`` (``results_nusc.json``).
-    Returns the metrics dict. ``rng`` draws the RSLM samples (a
-    generator on the card keeps them there). ``timers`` times 'read
-    time' (the frames from disk), the stages of
-    ``det.api.inference_detector`` and 'fusion + eval time';
+    inference function made once; ``tta`` the flip TTA): a list of
+    ``(frame index, {'bbox_3d_results': ...})`` in frame order. With
+    ``shard`` = (rank, world), only that rank's rows of each batch
+    (:func:`shard_rows`). ``rng`` draws the RSLM samples (a generator on
+    the card keeps them there). ``timers`` times 'read time' (the frames
+    from disk) and the stages of ``det.api.inference_detector``;
     ``on_batch(i)`` is called after batch ``i``."""
     from ..det import test as dtest
     from ..det.api import inference_detector
@@ -54,19 +73,58 @@ def evaluate_dataset(model, cfg: DetConfig, dataset, data_root: str,
                 else dtest.make_inference_fn)(model, cfg)
     results = []
     for b, i in enumerate(range(0, len(dataset), batch_size)):
-        infos = dataset.data_infos[i:i + batch_size]
-        with timers('read time'):
-            imgs = [imread(os.path.join(data_root, info['img_path']))
-                    for info in infos]
-        cams = [np.asarray(info['cam_intrinsic']) for info in infos]
-        _, out3d = inference_detector(model, cfg, imgs, cams,
-                                      infer_fn=infer_fn, rng=rng,
-                                      timers=timers, tta=tta)
-        results.extend(dict(bbox_3d_results=per_img) for per_img in out3d)
+        frames = list(range(i, min(i + batch_size, len(dataset))))
+        frames = frames[shard_rows(len(frames), shard)]
+        if frames:
+            infos = [dataset.data_infos[f] for f in frames]
+            with timers('read time'):
+                imgs = [imread(os.path.join(data_root, info['img_path']))
+                        for info in infos]
+            cams = [np.asarray(info['cam_intrinsic']) for info in infos]
+            _, out3d = inference_detector(model, cfg, imgs, cams,
+                                          infer_fn=infer_fn, rng=rng,
+                                          timers=timers, tta=tta)
+            results.extend((f, dict(bbox_3d_results=per_img))
+                           for f, per_img in zip(frames, out3d))
         if on_batch is not None:
             on_batch(b)
+    return results
+
+
+def evaluate_dataset(model, cfg: DetConfig, dataset, data_root: str,
+                     out_dir: str, batch_size: int = 6, tta: bool = False,
+                     imread: Callable[[str], np.ndarray] = read_frame,
+                     rng: Optional[torch.Generator] = None,
+                     timers: Optional[IterTimers] = None,
+                     on_batch: Optional[Callable[[int], None]] = None,
+                     data_parallel: bool = False) -> Optional[Dict]:
+    """Serve ``dataset``'s frames (:func:`infer_dataset`) and score them
+    with ``dataset.evaluate`` into ``out_dir`` (``results_nusc.json``).
+    Returns the metrics dict. ``timers`` also times 'fusion + eval time'.
+
+    ``data_parallel``: every rank of the ``torch.distributed`` group
+    serves its rows of each batch (a rank's generator seeded as every
+    other's, as JAX replicates its key), and rank 0 gathers the results in
+    frame order, fuses and scores them; it returns the metrics, the other
+    ranks None after it. The detections are those of one single-process
+    run per shard with the same seed (JAX's rule for
+    ``data_parallel_infer``)."""
+    timers = timers or IterTimers(enabled=False)
+    shard = (mesh.rank(), mesh.world_size()) if data_parallel else None
+    results = infer_dataset(model, cfg, dataset, data_root, batch_size,
+                            tta, imread, rng, timers, on_batch, shard)
+    if data_parallel:
+        gathered = mesh.gather_to_main(results)
+        if not mesh.is_main():
+            mesh.barrier()
+            return None
+        results = sorted((r for part in gathered for r in part),
+                         key=lambda r: r[0])
     with timers('fusion + eval time'):
-        return dataset.evaluate(results, out_dir)
+        metrics = dataset.evaluate([r for _, r in results], out_dir)
+    if data_parallel:
+        mesh.barrier()
+    return metrics
 
 
 def unfiltered(dataset):
@@ -112,7 +170,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--tta', action='store_true',
                    help='horizontal-flip test-time augmentation')
     p.add_argument('--data-parallel', action='store_true',
-                   help='not ported (ROADMAP A.5); refused')
+                   help='split every batch over the ranks of a '
+                        'torch.distributed group (torchrun; without it a '
+                        'group of one); rank 0 fuses and scores')
     p.add_argument('--timer', action='store_true')
     p.add_argument('--device', default='cuda')
     return p
@@ -123,26 +183,36 @@ def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     if args.data_parallel:
-        p.error('--data-parallel is not ported yet (ROADMAP A.5: '
-                'data-parallel serving); evaluate on one device')
+        world = int(os.environ.get('WORLD_SIZE', 1))
+        if args.batch_size % world:
+            p.error(f'--batch-size {args.batch_size} must divide by the '
+                    f'{world} ranks of --data-parallel')
     from ..det.api import init_detector
     from ..det.nuscenes_dataset import NuScenes3DDataset
     if not os.path.isfile(args.ann):
         p.error(f'annotation file not found: {args.ann}')
     cfg = getattr(DetConfig, args.config)()
+    device, rng = args.device, None
+    if args.data_parallel:
+        device = mesh.init_data_parallel(args.device).device
+        rng = torch.Generator(device).manual_seed(0)
     dataset = NuScenes3DDataset(args.ann, img_prefix=args.data)
-    model = init_detector(cfg, args.checkpoint, device=args.device)
+    model = init_detector(cfg, args.checkpoint, device=device)
     timers = IterTimers(enabled=args.timer)
     n = len(dataset)
     metrics = evaluate_dataset(
         model, cfg, dataset, args.data, args.out,
-        batch_size=args.batch_size, tta=args.tta, timers=timers,
-        on_batch=lambda b: print(
-            f'\r{min((b + 1) * args.batch_size, n)}/{n}', end=''))
+        batch_size=args.batch_size, tta=args.tta, rng=rng, timers=timers,
+        on_batch=lambda b: mesh.is_main() and print(
+            f'\r{min((b + 1) * args.batch_size, n)}/{n}', end=''),
+        data_parallel=args.data_parallel)
+    if not mesh.is_main():
+        return None
     print()
     if args.timer:
         print(timers.summary())
     print(json.dumps(metrics, default=str))
+    return metrics
 
 
 if __name__ == '__main__':

@@ -11,12 +11,21 @@ and training runs on the CUDA card unless ``--device`` says otherwise,
 with the PnP solves through the fused kernels (K1; their torch twins on
 the CPU). Each epoch writes ``checkpoint_{epoch:03d}.pt`` and
 ``latest.pt`` into ``--save``, which ``tools.test_6dof`` loads.
+
+Data-parallel, one process per replica:
+
+  torchrun --nproc-per-node N -m epropnp_tpu_torch.tools.train_6dof \
+      --data-parallel --exp epropnp_basic --data /path/to/lm
+
+``--batch-size`` (32 in the configs) is then the global batch; each rank
+reads and trains on its ``1/N`` of every batch's frames.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from ..sixdof.config import PnPConfig, SixDoFConfig
 from ..utils import cuda_setup
@@ -57,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help='checkpoint for CDPN-init experiments')
     p.add_argument('--resume-from', default=None)
     p.add_argument('--data-parallel', action='store_true',
-                   help='not ported (ROADMAP A.5); refused')
+                   help='one replica per process of a torch.distributed '
+                        'group (torchrun; without it a group of one); '
+                        '--batch-size is the global batch')
     p.add_argument('--batch-size', type=int, default=None)
     p.add_argument('--epochs', type=int, default=None)
     p.add_argument('--bg-dir', default=None,
@@ -77,9 +88,6 @@ def main(argv=None):
     cuda_setup.configure_cuda()
     p = build_parser()
     args = p.parse_args(argv)
-    if args.data_parallel:
-        p.error('--data-parallel is not ported yet (ROADMAP A.5: '
-                'data-parallel training); train on one device')
     if args.exp in ('epropnp_cdpn_init', 'epropnp_cdpn_init_long'):
         if not args.load_model:
             p.error(f'--load-model is required for {args.exp}')
@@ -92,6 +100,10 @@ def main(argv=None):
     if args.epochs:
         train = dataclasses.replace(train, end_epoch=args.epochs)
     cfg = dataclasses.replace(cfg, train=train)
+    world = int(os.environ.get('WORLD_SIZE', 1))
+    if args.data_parallel and train.train_batch_size % world:
+        p.error(f'the global batch {train.train_batch_size} must divide by '
+                f'the {world} ranks of --data-parallel')
     if args.smoke:
         cfg = smoke_config(cfg, sample_points=True)
     cfg = with_fused_solves(cfg)
@@ -104,7 +116,7 @@ def main(argv=None):
     if len(dataset) == 0:
         p.error(f'no samples found under {args.data}')
     return train_loop(cfg, dataset, args.save, resume_from=args.resume_from,
-                      device=args.device)
+                      data_parallel=args.data_parallel, device=args.device)
 
 
 if __name__ == '__main__':

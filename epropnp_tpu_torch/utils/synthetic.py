@@ -127,11 +127,14 @@ class SyntheticSixDoFDataset:
     def __len__(self) -> int:
         return self.n
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                rows: slice = slice(None)):
+        """Global batches of ``batch_size`` (the ragged tail dropped), cut
+        to ``rows`` (a data-parallel rank's block)."""
         order = (np.random.default_rng(seed).permutation(self.n) if shuffle
                  else np.arange(self.n))
         for start in range(0, self.n - batch_size + 1, batch_size):
-            idx = order[start:start + batch_size]
+            idx = order[start:start + batch_size][rows]
             yield tuple(self.data[k][idx] for k in self.FIELDS)
 
 

@@ -465,14 +465,17 @@ def test_imread_without_cv2_names_npy_frames(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('tool', ['train_det', 'test_det'])
 def test_cli_refuses_data_parallel(tool):
-    """``--data-parallel`` is refused with a message naming ROADMAP A.5
-    (usage error, exit code 2), before any data or model is touched."""
+    """``--data-parallel`` runs (it was refused before the port had it),
+    but refuses a global batch that does not divide over the ranks (6
+    over a WORLD_SIZE of 4) with a usage error (exit code 2), before any
+    process group, data or model is touched."""
     out = subprocess.run(
         [sys.executable, '-m', f'epropnp_tpu_torch.tools.{tool}',
          '--ann', 'missing.pkl', '--checkpoint', 'missing.pt',
-         '--data-parallel'] if tool == 'test_det' else
+         '--data-parallel', '--batch-size', '6'] if tool == 'test_det' else
         [sys.executable, '-m', f'epropnp_tpu_torch.tools.{tool}',
-         '--ann', 'missing.pkl', '--data-parallel'],
-        capture_output=True, text=True, timeout=120, cwd=REPO, check=False)
+         '--ann', 'missing.pkl', '--data-parallel', '--batch-size', '6'],
+        capture_output=True, text=True, timeout=120, cwd=REPO, check=False,
+        env=dict(os.environ, WORLD_SIZE='4'))
     assert out.returncode == 2, out.stderr
-    assert 'A.5' in out.stderr and 'data-parallel' in out.stderr
+    assert 'must divide' in out.stderr and 'data-parallel' in out.stderr

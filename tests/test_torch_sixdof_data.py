@@ -389,7 +389,11 @@ def test_validate_cli_on_the_cpu(tmp_path, capsys):
                         *out['add_best'].values()]).all()
 
 
-def test_data_parallel_is_refused(capsys):
+def test_data_parallel_is_refused(capsys, monkeypatch):
+    """``--data-parallel`` runs, but a global batch that does not divide
+    over the ranks (32 over a WORLD_SIZE of 3) is refused before any data
+    is read."""
+    monkeypatch.setenv('WORLD_SIZE', '3')
     with pytest.raises(SystemExit):
         train_6dof.main(['--data', '/nonexistent', '--data-parallel'])
-    assert 'A.5' in capsys.readouterr().err
+    assert 'must divide' in capsys.readouterr().err
